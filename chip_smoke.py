@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA device
+
+Drives the port's main path — FARSI's price-and-search loop,
+``Explorer.run()`` on the AR workload complex — through the CUDA phase-sim
+kernel, and checks it. Phases, each printing one JSON line:
+
+  1. env       card name and power limit, torch / CUDA versions
+  2. build     nvcc build of the kernel (registers, shared memory, spills)
+  3. parity    kernel vs its plain PyTorch version on the card, every output
+               column, ≤ 1e-5 relative (audio, ar_complex and a > 32-task
+               synthetic graph; 1–3 NoCs; B ∈ {1, 4, 256, 4096})
+  4. timing    kernel and plain-version times (CUDA events) beside the bound
+  5. main_path Explorer.run() on ar_complex, farsi, seed 1, 500 iterations;
+               the kernel's launch count is zeroed just before and read just
+               after, and the best design is re-priced by the scalar simulator
+  6. golden    two recorded accepted-move sequences replayed on the card
+  7. kernels   one line per ported kernel (launches, error, times, bound)
+
+then the card's ``nvidia-smi`` name/power-limit line and, last, the result
+object. Any failed check ends the run with a non-zero exit code and no
+result line; so does a machine with no CUDA device. The script imports the
+port only (``src/repro_torch``), never JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+REL_TOL = 1e-5  # kernel vs plain version, every output column
+# every output the kernel must reproduce, plus the per-block telemetry
+CHECK_KEYS = (
+    "latency_s", "finish_s", "bneck_code", "bneck_kind_s", "alp_time_s",
+    "traffic_bytes", "n_phases", "wl_latency_s", "energy_j", "power_w",
+    "area_mm2", "fitness", "all_done", "pe_bneck_s", "mem_bneck_s",
+    "noc_bneck_s",
+)
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
+PARITY_BATCHES = (1, 4, 256, 4096)
+TIMING_BATCHES = (4, 256, 4096)
+DISTINCT = 256  # distinct designs per parity population (tiled up to B)
+GOLDEN_CELLS = ("audio.farsi.s7.it150", "ar_complex.farsi.s3.it120")
+MAIN_ITERATIONS = 500
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def fail(phase: str, why: str, **kw) -> None:
+    emit(phase, ok=False, error=why, **kw)
+    raise SystemExit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def chain_designs(g, n_noc: int, count: int, seed: int):
+    """``count`` designs with an ``n_noc``-deep chain, built as the explorer
+    builds them: real NoC forks on a randomized single-NoC design, then
+    random remapping so routes span the chain."""
+    from repro_torch.core import Design, make_accelerator, make_mem
+    from repro_torch.core.moves import apply_fork
+
+    rng = random.Random(seed)
+    tasks = sorted(g.tasks)
+    out = []
+    for _ in range(count):
+        d = Design.base(g)
+        noc0 = d.noc_chain[0]
+        for _ in range(rng.randint(2, 4)):
+            if rng.random() < 0.5:
+                t = rng.choice(tasks)
+                b = d.add_block(make_accelerator(t, rng.choice((100, 400))),
+                                attach_to=noc0)
+                d.task_pe[t] = b.name
+            else:
+                d.add_block(make_mem(rng.choice(("dram", "sram")),
+                                     rng.choice((100, 800)), 32),
+                            attach_to=noc0)
+        while len(d.noc_chain) < n_noc:
+            if not apply_fork(d, g, rng.choice(d.noc_chain)):
+                raise RuntimeError("NoC fork refused while building a chain design")
+        pes, mems = d.pes(), d.mems()
+        for t in tasks:
+            d.task_pe[t] = rng.choice(pes)
+            d.task_mem[t] = rng.choice(mems)
+        out.append(d)
+    return out
+
+
+def population(g, budget, n_noc: int, b: int, seed: int, db, slots: int = 0):
+    """Rows for ``b`` candidates on the host: ``min(b, DISTINCT)`` distinct
+    designs with Eq.-7 budgets, tiled up to ``b`` rows. ``slots`` pads the
+    PE/MEM slot axes as the backend's shape buckets do (0: no padding)."""
+    import numpy as np
+
+    from repro_torch.core import random_single_noc_designs
+    from repro_torch.core.phase_sim_torch import EncodedWorkload, encode_batch, fill_budget
+
+    enc = EncodedWorkload.of(g)
+    k = min(b, DISTINCT)
+    if n_noc == 1:
+        designs = random_single_noc_designs(g, k, seed=seed)
+    else:
+        designs = chain_designs(g, n_noc, k, seed=seed)
+    rows = encode_batch(designs, g, db, enc, n_pe=slots, n_mem=slots, n_noc=n_noc)
+    for j in range(k):
+        fill_budget(rows, j, enc, budget.latency_s, budget.power_w, budget.area_mm2, 0.05)
+    reps = -(-b // k)
+    rows = {key: np.concatenate([v] * reps, 0)[:b] for key, v in rows.items()}
+    return enc, rows
+
+
+def compare(want, got):
+    """(max relative error, max absolute error, worst key, dtype problems)."""
+    import torch
+
+    worst_rel, worst_abs, worst_key = 0.0, 0.0, ""
+    for key in CHECK_KEYS:
+        a, b = want[key], got[key]
+        if a.shape != b.shape:
+            return float("inf"), float("inf"), f"{key}: shape {tuple(b.shape)}", []
+        if a.numel() == 0:
+            continue
+        a64, b64 = a.double(), b.double()
+        diff = (a64 - b64).abs()
+        rel = (diff / a64.abs().clamp(min=1e-12)).max().item()
+        ab = diff.max().item()
+        if rel > worst_rel:
+            worst_rel, worst_key = rel, key
+        worst_abs = max(worst_abs, ab)
+    bad = [k for k, dt in (("bneck_code", torch.int32), ("n_phases", torch.int32),
+                           ("all_done", torch.bool)) if got[k].dtype != dt]
+    return worst_rel, worst_abs, worst_key, bad
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` run ``reps`` times back to back: a
+    sleep kernel holds the stream while the host enqueues, so the events
+    bracket the launches and not the host's enqueue rate."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Synchronised wall time per call (the plain version is host-launch
+    bound: hundreds of small PyTorch ops per call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def bound(rows, enc, n_phases) -> tuple:
+    """Least time the card could take for one launch on these inputs: the
+    larger of bytes (each input read once, each output written once) over
+    HBM bandwidth and f32 operations over the f32 peak. Operations follow
+    the kernel's loops with this run's phase counts: per phase and candidate
+    T² for the ready set, 4·T² for the PE/MEM shares, 2·T² per NoC for the
+    link loads, ~30·T elementwise; after the loop T·(S_pe + 2·S_mem) for the
+    slot sums and ~50·T for the rollup."""
+    from repro_torch.kernels.phase_sim.kernel import out_layout
+
+    b, t = rows["task_pe"].shape
+    s_pe, s_mem, n_noc = rows["pe_peak"].shape[1], rows["mem_bw"].shape[1], rows["noc_bw"].shape[1]
+    n_wl = len(enc.wl_names)
+    bytes_in = 4 * (5 * t) + t * t  # work, rd, wr, burst, wl_id; parent mask bytes
+    bytes_in += sum(v.element_size() * v.numel() for v in rows.values())
+    bytes_out = 4 * b * out_layout(t, s_pe, s_mem, n_noc, n_wl)["width"]
+    nbytes = bytes_in + bytes_out
+    phases = float(n_phases.double().sum().item())
+    ops = phases * (t * t * (5 + 2 * n_noc) + 30 * t) + b * (t * (s_pe + 2 * s_mem) + 50 * t)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import (
+        Explorer, ExplorerConfig, HardwareDatabase, ar_complex, audio,
+        calibrated_budget, distance, edge_detection, simulate, synthetic_family,
+    )
+    from repro_torch.core.backend import _bucket  # the backend's slot bucket
+    from repro_torch.core.phase_sim_torch import rows_to
+    from repro_torch.kernels.phase_sim import kernel as K
+    from repro_torch.kernels.phase_sim import ops
+    from repro_torch.kernels.phase_sim.ref import phase_sim_ref
+
+    # parity paths run in full f32: no TF32 anywhere (the kernel and the
+    # plain version use no matrix product, but the setting is stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = smi_line()
+    emit("env", ok=True, card=card, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0], tf32=False)
+
+    # ---- build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = K.build()
+    ptxas = [ln.strip() for ln in K.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln]
+    emit("build", ok=True, seconds=time.perf_counter() - t0, library=os.path.relpath(lib, HERE),
+         flags=" ".join(K.NVCC_FLAGS), ptxas=ptxas)
+
+    # ---- parity ------------------------------------------------------------
+    db = HardwareDatabase()
+    bud = calibrated_budget(db)
+    syn = synthetic_family(3, 1, db, min_tasks=48, max_tasks=100)[0]
+    graphs = (("audio", audio(), bud), ("ar_complex", ar_complex(), bud),
+              (syn.name, syn.tdg, syn.budget))
+    t0 = time.perf_counter()
+    worst_rel, worst_abs, cases, failures = 0.0, 0.0, [], []
+    for gname, g, gb in graphs:
+        for n_noc in (1, 2, 3):
+            for b in PARITY_BATCHES:
+                # half the shapes padded as the backend pads them (the slot
+                # bucket may exceed the thread count), half unpadded
+                slots = _bucket(len(g.tasks)) if b in (4, 4096) else 0
+                enc, rows = population(g, gb, n_noc, b, seed=1000 * n_noc + b, db=db,
+                                       slots=slots)
+                dev = rows_to(rows, "cuda")
+                got = ops.phase_sim(enc, dev)
+                torch.cuda.synchronize()
+                want = phase_sim_ref(enc, dev)
+                torch.cuda.synchronize()
+                rel, ab, key, bad = compare(want, got)
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
+                case = {"graph": gname, "tasks": len(enc.names), "nocs": n_noc, "batch": b,
+                        "slots": rows["pe_peak"].shape[1], "max_rel_err": rel,
+                        "max_abs_err": ab, "worst": key}
+                cases.append(case)
+                if rel > REL_TOL or bad:
+                    failures.append({**case, "dtype": bad})
+    if failures:
+        fail("parity", "kernel disagrees with the plain version", failures=failures[:12],
+             n_failed=len(failures), n_cases=len(cases))
+    emit("parity", ok=True, cases=len(cases), max_rel_err=worst_rel, max_abs_err=worst_abs,
+         tol=REL_TOL, seconds=time.perf_counter() - t0)
+
+    # ---- timing (at the main path's padded shapes) ---------------------------
+    g = ar_complex()
+    timings = {}
+    for n_noc in (1, 2):
+        for b in TIMING_BATCHES:
+            enc, rows = population(g, bud, n_noc, b, seed=7 + b, db=db,
+                                   slots=_bucket(len(g.tasks)))
+            dev = rows_to(rows, "cuda")
+            w = enc.on("cuda")
+            nocs = ops.pack_nocs(dev)
+            lay = K.out_layout(len(enc.names), rows["pe_peak"].shape[1],
+                               rows["mem_bw"].shape[1], n_noc, len(enc.wl_names))
+            out = torch.empty((b, lay["width"]), dtype=torch.float32, device="cuda")
+            launches0 = K.phase_sim_cuda.launches
+            reps = 200 if b <= 256 else 50
+            ms = cuda_time_ms(lambda: K.phase_sim_cuda(w, dev, nocs, out), reps)
+            launches = K.phase_sim_cuda.launches - launches0
+            plain_ms = wall_ms(lambda: phase_sim_ref(enc, dev), 5 if b < 4096 else 3)
+            n_phases = ops.unpack(out, enc, rows["pe_peak"].shape[1],
+                                  rows["mem_bw"].shape[1], n_noc)["n_phases"]
+            bound_ms, bound_by, nbytes, nops = bound(dev, enc, n_phases)
+            timings[(n_noc, b)] = (ms, plain_ms, bound_ms, bound_by)
+            emit("timing", ok=True, graph="ar_complex", nocs=n_noc, batch=b,
+                 slots=rows["pe_peak"].shape[1], ms=ms,
+                 plain_ms=plain_ms, library_ms=None, launches=launches,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops,
+                 card=card)
+
+    # ---- main path ---------------------------------------------------------
+    g = ar_complex()
+    K.phase_sim_cuda.launches = 0
+    t0 = time.perf_counter()
+    ex = Explorer(g, db, bud, ExplorerConfig(
+        awareness="farsi", max_iterations=MAIN_ITERATIONS, seed=1))
+    res = ex.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = K.phase_sim_cuda.launches
+    st = ex.backend.stats()
+    fit = distance(simulate(res.best_design, g, db), bud).fitness(0.05)
+    last = res.history[-1]["fitness"]
+    rel = abs(fit - last) / max(abs(fit), 1e-12)
+    summary = dict(
+        backend=res.backend_name, device=str(ex.backend.device), iterations=res.iterations,
+        converged=res.converged, n_sims=res.n_sims, wall_s=wall,
+        sims_per_s=res.n_sims / wall, encode_s=st.encode_s, dispatch_s=st.dispatch_s,
+        decode_s=st.decode_s, backend_wall_s=st.wall_s, n_dispatches=st.n_dispatches,
+        n_fallback=st.n_fallback, n_compiles=st.n_compiles, launches=main_launches,
+        repriced_fitness=fit, history_fitness=last, fitness_rel_err=rel, card=card,
+    )
+    if ex.backend.device.type != "cuda":
+        fail("main_path", "the explorer did not price on the card", **summary)
+    if main_launches < res.iterations:
+        fail("main_path", "fewer kernel launches than iterations", **summary)
+    if st.n_fallback != 0:
+        fail("main_path", "candidates fell back to the scalar simulator", **summary)
+    if rel > REL_TOL:
+        fail("main_path", "best design re-priced off the search's fitness", **summary)
+    emit("main_path", ok=True, **summary)
+
+    # ---- golden sequences ----------------------------------------------------
+    with open(os.path.join(HERE, "tests", "golden_policy_seqs.json")) as f:
+        gold = json.load(f)
+    graphs = {"audio": audio, "ar_complex": ar_complex, "ed": edge_detection}
+    replayed = []
+    for key in GOLDEN_CELLS:
+        ref = gold[key]
+        gname, aware, s, it = key.split(".")
+        r = Explorer(graphs[gname](), db, bud, ExplorerConfig(
+            awareness=aware, max_iterations=int(it[2:]), seed=int(s[1:]))).run()
+        seq = [[h["iteration"], h["move"], int(h["accepted"])] for h in r.history]
+        if seq != ref["seq"] or r.n_sims != ref["n_sims"]:
+            first = next((i for i, (a, b) in enumerate(zip(seq, ref["seq"])) if a != b),
+                         min(len(seq), len(ref["seq"])))
+            fail("golden", f"{key} diverged from the recorded sequence", first_diff=first,
+                 n_sims=r.n_sims, want_n_sims=ref["n_sims"])
+        replayed.append({"cell": key, "iterations": len(seq), "n_sims": r.n_sims})
+    emit("golden", ok=True, cells=replayed)
+
+    # ---- kernels -------------------------------------------------------------
+    ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape
+    print(json.dumps({"kernels": [{
+        "name": "phase_sim",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/phase_sim/csrc/phase_sim.cu",
+        "replaces": "src/repro/kernels/phase_sim/kernel.py:54",
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        "max_rel_err": worst_rel,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
