@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
 
-Drives the port's main path — FARSI's price-and-search loop,
-``Explorer.run()`` on the AR workload complex — through the CUDA phase-sim
-kernel, and checks it. Phases, each printing one JSON line:
+Drives the port's two paths and checks them: FARSI's price-and-search loop,
+``Explorer.run()`` on the AR workload complex, through the CUDA phase-sim
+kernel; and serving Qwen3-1.7B at full width and depth (``generate``: prefill
+and greedy decode) through the CUDA flash-attention kernel. Phases, each
+printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
@@ -17,7 +19,21 @@ kernel, and checks it. Phases, each printing one JSON line:
                the kernel's launch count is zeroed just before and read just
                after, and the best design is re-priced by the scalar simulator
   6. golden    two recorded accepted-move sequences replayed on the card
-  7. kernels   one line per ported kernel (launches, error, times, bound)
+  7. flash_build   nvcc build of the flash kernel (started in parallel with
+                   the phase-sim build; registers, shared memory, spills)
+  8. flash_parity  flash kernel vs its plain version on the card: bf16 and
+                   f32, Dh 16-256, MHA/GQA/MQA, causal and not, S 128-2048
+                   and a ragged S; ≤ 2e-2 (bf16) / 2e-5 (f32), the
+                   reference's own bars
+  9. flash_timing  kernel, plain-version and SDPA times beside the bound at
+                   the Qwen3-1.7B prefill shape (B=4, S=512) and at S=2048
+ 10. serve     generate() on Qwen3-1.7B, 28 layers, seeded random bf16
+               weights made on the card: 4 prompts of 512 tokens, 32 new
+               tokens each, attn_impl="kernel"; the flash launch count is
+               zeroed just before and read just after (must be 28); then the
+               plain attention path on the same weights (2 layers: held to
+               the reference's bar; 28 layers: reported)
+ 11. kernels   one line per ported kernel (launches, error, times, bound)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object. Any failed check ends the run with a non-zero exit code and no
@@ -206,6 +222,246 @@ def bound(rows, enc, n_phases) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def timed(fn):
+    """(fn(), seconds it took)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+# ---- the serving path and its flash-attention kernel ---------------------------
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # the reference's bars (tests/test_kernels.py)
+FLASH_HEADS = {"mha": 8, "gqa": 2, "mqa": 1}  # KV heads under 8 query heads
+FLASH_SEQS = (128, 512, 1024, 2048, 1000)  # 1000: no multiple of the 64-row tile
+PREFILL = dict(b=4, s=512, h=16, kh=8, dh=128)  # Qwen3-1.7B's prefill shape in serve
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
+SERVE_ATOL, SERVE_RTOL = 5e-2, 2e-2  # the reference's bar (tests/test_train_serve.py)
+
+
+def flash_inputs(b, h, kh, s, dh, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, n, s, dh, generator=g, device="cuda").to(dtype) for n in (h, kh, kh)]
+
+
+def flash_bound(b, h, kh, s, dh, itemsize, causal=True) -> tuple:
+    """Least time for one call: each input read once and the output written
+    once, over HBM bandwidth; the causal products this input needs
+    (4·Dh per query-key pair, S(S+1)/2 pairs per head) over the bf16 peak."""
+    nbytes = itemsize * (2 * b * h * s * dh + 2 * b * kh * s * dh)
+    pairs = s * (s + 1) / 2 if causal else s * s
+    ops = 4.0 * b * h * dh * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: synchronised wall ms, the
+    device's busy ms (the union of its kernels' intervals), the busy share,
+    and the five kernels with the most device time. A trace without device
+    events reports the busy figures as None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(
+        wall_ms=wall_ms, kernels=len(spans),
+        busy_ms=busy_us / 1e3 if spans else None,
+        busy_share=busy_us / 1e3 / wall_ms if spans else None,
+        top=[{"kernel": name[:90], "ms": ms, "count": n} for name, (ms, n) in top],
+    )
+
+
+def flash_phases(card: str, build_future) -> dict:
+    """Phases 7-10; returns the flash kernel's entry of the kernels line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.launch.serve import extend_cache, generate
+    from repro_torch.models.model import Model, RunFlags, init_params
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    # ---- flash_build ---------------------------------------------------------
+    try:
+        lib, seconds = build_future.result()
+    except RuntimeError as e:  # nvcc's own message
+        fail("flash_build", str(e)[-4000:])
+    ptxas = [ln.strip() for ln in FK.build_log.splitlines()  # per template instance
+             if "registers" in ln or "spill" in ln or "smem" in ln or "entry function" in ln]
+    emit("flash_build", ok=True, seconds=seconds, library=os.path.relpath(lib, HERE),
+         flags=" ".join(FK.NVCC_FLAGS), ptxas=ptxas)
+
+    # ---- flash_parity ----------------------------------------------------------
+    t0 = time.perf_counter()
+    worst = {dt: {"max_abs_err": 0.0, "max_rel_err": 0.0} for dt in FLASH_TOL}
+    failures, n_cases, seed = [], 0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[dt]
+        for dh in (16, 32, 64, 128, 256):
+            for heads, kh in FLASH_HEADS.items():
+                for s in FLASH_SEQS:
+                    for causal in (True, False):
+                        seed += 1
+                        q, k, v = flash_inputs(1, 8, kh, s, dh, dtype, seed)
+                        got = FK.flash_attention_cuda(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        want = attention_reference(q, k, v, causal=causal)
+                        mag = want.double().abs()
+                        d = (got.double() - want.double()).abs()
+                        ab = d.max().item()
+                        rel = ab / max(mag.max().item(), 1e-30)  # against the output's scale
+                        ok = bool((d <= tol + tol * mag).all()) and got.dtype == dtype
+                        w = worst[dt]
+                        w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
+                        n_cases += 1
+                        if not ok:
+                            failures.append({"dtype": dt, "dh": dh, "heads": heads, "s": s,
+                                             "causal": causal, "max_abs_err": ab})
+    if failures:
+        fail("flash_parity", "kernel disagrees with the plain version", failures=failures[:12],
+             n_failed=len(failures), n_cases=n_cases)
+    emit("flash_parity", ok=True, cases=n_cases, worst=worst, tol=FLASH_TOL,
+         check="|kernel - plain| <= tol + tol*|plain| everywhere; "
+               "max_rel_err = max|kernel - plain| / max|plain| per case",
+         seconds=time.perf_counter() - t0)
+
+    # ---- flash_timing ------------------------------------------------------------
+    timings = {}
+    for s in (PREFILL["s"], 2048):
+        shape = dict(PREFILL, s=s)
+        b, h, kh, dh = shape["b"], shape["h"], shape["kh"], shape["dh"]
+        q, k, v = flash_inputs(b, h, kh, s, dh, torch.bfloat16, seed=s)
+        ms = cuda_time_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50)
+        plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, causal=True), 10)
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50)
+        bound_ms, bound_by, nbytes, nops = flash_bound(b, h, kh, s, dh, 2)
+        timings[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        emit("flash_timing", ok=True, shape=shape, dtype="bfloat16", causal=True, bytes=nbytes,
+             ops=nops, card=card, **timings[s])
+
+    # ---- serve: Qwen3-1.7B, full width and depth, through the kernel -------------
+    cfg = get_config("qwen3-1.7b")
+    model, init_s = timed(lambda: init_params(cfg, seed=0, dtype=torch.bfloat16))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                                      generator=g, device="cuda")}
+    kernel_flags = RunFlags(attn_impl="kernel")
+    generate(model, cfg, prompt, 1, flags=kernel_flags)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    tokens, last = generate(model, cfg, prompt, SERVE_NEW, flags=kernel_flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FK.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same work step by step, for the prefill / decode breakdown
+    prefill, decode = make_prefill_step(cfg, kernel_flags), make_decode_step(cfg, kernel_flags)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = logits
+        cache = extend_cache(cfg, cache, SERVE_PROMPT + SERVE_NEW)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SERVE_NEW):
+            logits, cache = decode(model, cache, {"tokens": tok[:, None]}, SERVE_PROMPT + i)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_NEW
+    # where the time goes: one prefill and four decode steps under the profiler
+    with torch.inference_mode():
+        prof_prefill = device_profile(lambda: prefill(model, prompt))
+        tok = logits.argmax(-1)
+        prof_decode = device_profile(lambda: [decode(model, cache, {"tokens": tok[:, None]},
+                                                     SERVE_PROMPT + SERVE_NEW - 1)
+                                              for _ in range(4)])
+    summary = dict(
+        model="qwen3-1.7b", layers=cfg.n_layers, d_model=cfg.d_model, batch=SERVE_BATCH,
+        prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        tokens_per_s=SERVE_BATCH * SERVE_NEW / wall, prefill_ms=prefill_ms,
+        decode_ms_per_step=decode_ms, max_memory_allocated=peak, flash_launches=launches,
+        params_device=str(model.device), cache_device=str(cache[0]["k"].device), card=card,
+        profile={"prefill": prof_prefill, "decode_4_steps": prof_decode},
+    )
+    if model.device.type != "cuda" or cache[0]["k"].device.type != "cuda":
+        fail("serve", "the model or its cache is not on the card", **summary)
+    if launches != cfg.n_layers:
+        fail("serve", f"{launches} flash launches, want one per layer ({cfg.n_layers})", **summary)
+    finite = all(bool(torch.isfinite(x).all()) for x in (last, first, logits))
+    valid = tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    if not (finite and valid):
+        fail("serve", "non-finite logits or invalid token ids", finite=finite, valid=valid, **summary)
+
+    # the plain attention path on the same weights: 2 layers held to the
+    # reference's bar, all 28 reported (bf16 differences compound with depth)
+    tree = model.tree()
+    shallow = Model(dict(tree, layers=tree["layers"][:2]))
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    plain_flags = RunFlags(attn_impl="full")
+    compare = {}
+    with torch.inference_mode():
+        for name, c, m in (("2_layers", cfg2, shallow), ("28_layers", cfg, model)):
+            got = make_prefill_step(c, kernel_flags)(m, prompt)[0]
+            want = make_prefill_step(c, plain_flags)(m, prompt)[0]
+            d = (got - want).abs()
+            compare[name] = dict(
+                max_abs_diff=d.max().item(),
+                within_bar=bool((d <= SERVE_ATOL + SERVE_RTOL * want.abs()).all()),
+                top1_agree=(got.argmax(-1) == want.argmax(-1)).float().mean().item())
+    if not compare["2_layers"]["within_bar"]:
+        fail("serve", "2-layer kernel path disagrees with the plain path", plain=compare, **summary)
+    emit("serve", ok=True, plain=compare, bar={"atol": SERVE_ATOL, "rtol": SERVE_RTOL}, **summary)
+
+    t = timings[PREFILL["s"]]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
+        "launches": launches,
+        "max_abs_err": max(w["max_abs_err"] for w in worst.values()),
+        "max_rel_err": max(w["max_rel_err"] for w in worst.values()),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -232,7 +488,14 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0], tf32=False)
 
-    # ---- build -----------------------------------------------------------
+    # ---- build (the flash kernel compiles meanwhile, in its own nvcc) ------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    pool = ThreadPoolExecutor(1)
+    flash_build = pool.submit(timed, FK.build)
+    pool.shutdown(wait=False)
     t0 = time.perf_counter()
     lib = K.build()
     ptxas = [ln.strip() for ln in K.build_log.splitlines()
@@ -354,6 +617,8 @@ def main() -> int:
         replayed.append({"cell": key, "iterations": len(seq), "n_sims": r.n_sims})
     emit("golden", ok=True, cells=replayed)
 
+    flash = flash_phases(card, flash_build)
+
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape
     print(json.dumps({"kernels": [{
@@ -369,7 +634,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }, flash]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,7 @@
 The kernel (``csrc/phase_sim.cu``) replaces the Pallas TPU kernel
 ``_phase_sim_kernel`` of ``src/repro/kernels/phase_sim/kernel.py``. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-entry point, at first use, into ``build/kernels/`` at the repository root,
-keyed by a hash of the source and the flags (a changed source rebuilds), and
+entry point, at first use, into ``build/kernels/`` (``kernels._build``), and
 bound with ``ctypes``. Nothing here runs at import: this module imports
 cleanly on a machine with no CUDA toolkit.
 
@@ -18,17 +17,13 @@ to the host in one copy.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 from ...core.scal_layout import N_SCAL
+from .._build import Library
 
 # per-candidate scalars packed into one (B, 4) input, in this order
 NOCS_COLS = ("noc_pj", "power_budget", "area_budget", "alpha")
@@ -38,7 +33,6 @@ MAX_TASKS = 1024  # one thread per task, one block per candidate
 MAX_NOC = 8
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "phase_sim.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 # IEEE division and denormals, and no contraction of a*b+c into one fused
 # multiply-add: the bottleneck codes and the retire test are comparisons, and
 # one ulp flips them, so every product and sum rounds as the plain version's
@@ -47,8 +41,6 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (-Xptxas -v: registers, shared memory, spills)
 
 
@@ -69,51 +61,24 @@ def out_layout(t: int, s_pe: int, s_mem: int, n_noc: int, n_wl: int) -> Dict[str
             "finish": fin, "bneck": bn, "width": bn + t}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the phase-sim kernel needs the CUDA toolkit")
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.phase_sim_launch.argtypes = [vp] * 29 + [vp, ci] + [ci] * 7 + [vp]
+    lib.phase_sim_launch.restype = ci
+    lib.phase_sim_error_string.argtypes = [ci]
+    lib.phase_sim_error_string.restype = ctypes.c_char_p
+
+
+_LIB = Library("phase_sim", SOURCE, NVCC_FLAGS, _bind)
 
 
 def build() -> Path:
     """Compile the kernel library if this source/flag combination has not
-    been built yet; returns its path. Safe against concurrent processes (each
-    compiles to a private temporary and renames into place)."""
+    been built yet; returns its path and sets :data:`build_log`."""
     global build_log
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"phase_sim_{tag}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    build_log = log.read_text() if log.exists() else ""
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.phase_sim_launch.argtypes = [vp] * 29 + [vp, ci] + [ci] * 7 + [vp]
-            lib.phase_sim_launch.restype = ci
-            lib.phase_sim_error_string.argtypes = [ci]
-            lib.phase_sim_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    path = _LIB.build()
+    build_log = _LIB.log
+    return path
 
 
 _F32_ROWS = (
@@ -167,7 +132,7 @@ def phase_sim_cuda(w, rows: Dict[str, torch.Tensor], nocs: torch.Tensor,
     _check("out", out, f32, (b, lay["width"]))
     if b == 0:
         return out
-    lib = _load()
+    lib = _LIB.get()
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.phase_sim_launch(

@@ -1,0 +1,389 @@
+"""Generic decoder stack: instantiates the dense attention architectures from
+their ``ModelConfig``; the torch counterpart of ``repro.models.model``.
+
+Layers are grouped into a repeating *cycle* of positions as in the
+reference; where the reference scans over cycles (``lax.scan``), the port
+loops over layers in Python, layer ``i`` sitting at cycle position
+``i % cycle_len``. Two execution modes share one block implementation:
+
+  prefill  — full sequence (``forward``), optionally emitting a per-layer
+             KV cache
+  decode   — one token against the cache (``decode_step``), which is
+             updated IN PLACE (the reference returns a new cache)
+
+Parameters live in a :class:`Model`, a module tree that mirrors the
+reference's pytree key for key, one entry of ``layers`` per layer (the
+reference stacks each cycle position over cycles). Everything runs on the
+device of the parameters; the constructors default to CUDA and raise
+without it. Mamba-2 blocks and MoE layers are not ported yet: they raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention.ops import flash_attention
+from .flash_ref import flash_attention_ref
+from .layers import (
+    _mm,
+    apply_mrope,
+    apply_rope,
+    attention_decode,
+    attention_full,
+    mlp_apply,
+    rms_norm,
+)
+
+MAMBA_TODO = ("Mamba-2 blocks are not ported yet (ROADMAP queue 1 item 1: "
+              "models/mamba2.py with the SSD kernel)")
+MOE_TODO = "MoE layers are not ported yet (ROADMAP queue 1 item 1: models/moe.py)"
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Per-call execution knobs: the reference's attention knobs. Its
+    ``remat``, ``ssd_chunk`` and ``moe_impl`` come with the training,
+    Mamba-2 and MoE slices."""
+
+    attn_impl: str = "auto"  # "auto" | "full" | "blockwise" | "kernel"
+    q_block: int = 512
+    kv_block: int = 1024
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; asking for CUDA
+    where there is none raises (nothing drops to the CPU silently)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as a module tree: dict keys become
+    submodules or parameters (no gradient), lists become ``ModuleList``s."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(x) for x in val))
+            else:
+                self.register_parameter(key, nn.Parameter(val, requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters back as a nested dict (the same tensors)."""
+        out: Dict[str, Any] = dict(self._parameters)
+        for key, mod in self._modules.items():
+            out[key] = [m.tree() for m in mod] if isinstance(mod, nn.ModuleList) else mod.tree()
+        return out
+
+
+class Model(ParamTree):
+    """The decoder's parameters: ``layers`` (per layer: ``norm1``, ``mixer``
+    {``wq``, ``wk``, ``wv``, ``wo``[, ``q_norm``, ``k_norm``]}, ``norm2``,
+    ``mlp`` {``wi_gate``[, ``wi_up``], ``wo``}), ``final_norm``, and
+    ``embed`` and/or ``lm_head``. Matrices are (d_in, d_out), as in the
+    reference."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> Model:
+    """Random weights with the reference's distributions: matrices normal ×
+    1/√fan_in, the embedding normal × 0.02, the untied LM head normal /
+    √d_model, norms zero; drawn in f32 from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (CUDA by default), then cast to ``dtype``."""
+    if cfg.has_mamba():
+        raise NotImplementedError(MAMBA_TODO)
+    if cfg.has_moe():
+        raise NotImplementedError(MOE_TODO)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, dtype=_F32, device=dev) * scale).to(dtype)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=dev)
+
+    d, h, kh, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    layers = []
+    for i in range(cfg.n_layers):
+        mixer = {
+            "wq": normal((d, h * dh), 1.0 / math.sqrt(d)),
+            "wk": normal((d, kh * dh), 1.0 / math.sqrt(d)),
+            "wv": normal((d, kh * dh), 1.0 / math.sqrt(d)),
+            "wo": normal((h * dh, d), 1.0 / math.sqrt(h * dh)),
+        }
+        if cfg.qk_norm:
+            mixer["q_norm"], mixer["k_norm"] = zeros(dh), zeros(dh)
+        layer = {"norm1": zeros(d), "mixer": mixer}
+        if cfg.mlp_kind_at(i % cfg.cycle_len) == "dense":
+            mlp = {"wi_gate": normal((d, ff), 1.0 / math.sqrt(d)),
+                   "wo": normal((ff, d), 1.0 / math.sqrt(ff))}
+            if cfg.mlp_kind != "gelu":
+                mlp["wi_up"] = normal((d, ff), 1.0 / math.sqrt(d))
+            layer["norm2"], layer["mlp"] = zeros(d), mlp
+        layers.append(layer)
+    tree: Dict[str, Any] = {"layers": layers, "final_norm": zeros(d)}
+    if cfg.input_mode == "tokens":
+        tree["embed"] = normal((cfg.vocab_size, d), 0.02)
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
+        tree["lm_head"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    return Model(tree)
+
+
+def cast_params(params: Model, compute_dtype) -> Dict[str, Any]:
+    """Mixed-precision policy: f32 matrices compute in ``compute_dtype``;
+    the MoE router and every 1-D tensor (norm scales, SSM scalars) keep
+    their precision. Returns the nested dict; a tensor already in its dtype
+    is returned as is (no copy)."""
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        if "router" not in name and node.dim() >= 2 and node.dtype == _F32:
+            return node.to(compute_dtype)
+        return node
+
+    return walk(params.tree())
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _mm("bsd,de->bse", x, p["wq"]).reshape(b, s, h, dh)
+    k = _mm("bsd,de->bse", x, p["wk"]).reshape(b, s, kh, dh)
+    v = _mm("bsd,de->bse", x, p["wv"]).reshape(b, s, kh, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _position(q, k, cfg: ModelConfig, positions, mrope_positions):
+    if cfg.rope_kind == "rope":
+        return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope_kind == "mrope":
+        mp = mrope_positions if mrope_positions is not None else positions[None].expand(3, *positions.shape)
+        return (apply_mrope(q, mp, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, mp, cfg.rope_theta, cfg.mrope_sections))
+    return q, k
+
+
+def _attn_seq(p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions, want_cache: bool):
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q, k = _position(q, k, cfg, positions, mrope_positions)
+    impl = flags.attn_impl
+    if impl == "auto":
+        impl = "full" if s <= 1024 else "blockwise"
+    if impl == "kernel":
+        out = flash_attention(q, k, v, causal=True)
+    elif impl == "blockwise":
+        out = flash_attention_ref(q, k, v, True, min(flags.q_block, s), min(flags.kv_block, s))
+    elif impl == "full":
+        out = attention_full(q, k, v, causal=True)
+    else:
+        raise ValueError(f"unknown attn_impl {flags.attn_impl!r}")
+    y = _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
+    return y, ({"k": k, "v": v} if want_cache else None)
+
+
+def _quantize(x: torch.Tensor):
+    """int8 with a per-(token, head) absmax scale stored in bf16."""
+    xf = x.to(_F32)
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions):
+    b, s, _ = x.shape  # s == 1
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.full((b, 1), cur_index, dtype=torch.long, device=x.device)
+    q, k = _position(q, k, cfg, positions, mrope_positions)
+    if "k_scale" in cache:  # int8 KV cache (per-token, per-head absmax)
+        for name, t in (("k", k), ("v", v)):
+            tq, ts = _quantize(t)
+            cache[name][:, cur_index] = tq[:, 0]
+            cache[f"{name}_scale"][:, cur_index] = ts[:, 0]
+        bf16 = torch.bfloat16
+        k_cache = cache["k"].to(bf16) * cache["k_scale"].to(bf16)[..., None]
+        v_cache = cache["v"].to(bf16) * cache["v_scale"].to(bf16)[..., None]
+    else:
+        cache["k"][:, cur_index] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
+        k_cache, v_cache = cache["k"], cache["v"]
+    out = attention_decode(q, k_cache, v_cache, cur_index)
+    return _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
+
+
+def _mlp(pos: int, p, x, cfg: ModelConfig):
+    mk = cfg.mlp_kind_at(pos)
+    if mk == "moe":
+        raise NotImplementedError(MOE_TODO)
+    if mk == "dense":
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_kind)
+    return x
+
+
+def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions,
+               want_cache: bool):
+    if cfg.block_kinds[pos] != "attn":
+        raise NotImplementedError(MAMBA_TODO)
+    h, cache = _attn_seq(p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, flags,
+                         positions, mrope_positions, want_cache)
+    return _mlp(pos, p, x + h, cfg), cache
+
+
+def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions):
+    if cfg.block_kinds[pos] != "attn":
+        raise NotImplementedError(MAMBA_TODO)
+    h = _attn_decode(p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cache, cur_index,
+                     mrope_positions)
+    return _mlp(pos, p, x + h, cfg)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+def _embed(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor], compute_dtype) -> torch.Tensor:
+    x = p["embed"][batch["tokens"]] if cfg.input_mode == "tokens" else batch["embeds"]
+    x = x.to(compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
+    return x
+
+
+def _head(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings and "embed" in p:
+        w = p["embed"].t().to(x.dtype)
+    else:
+        w = p["lm_head"].to(x.dtype)
+    # the reference's bf16 product with f32 accumulation and f32 logits: the
+    # operands widen to f32 exactly, so only the summation order differs
+    return torch.matmul(x.to(_F32), w.to(_F32))
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+def _sequence(p, cfg: ModelConfig, batch, flags: RunFlags, compute_dtype, want_cache: bool):
+    """Embed and run every layer: (hidden pre-final-norm, per-layer caches)."""
+    x = _embed(p, cfg, batch, compute_dtype)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    mrope_positions = batch.get("mrope_positions")
+    caches: List[Optional[dict]] = []
+    for i, lp in enumerate(p["layers"]):
+        x, cache = _block_seq(i % cfg.cycle_len, lp, x, cfg, flags, positions, mrope_positions,
+                              want_cache)
+        caches.append(cache)
+    return x, (caches if want_cache else None)
+
+
+def forward(
+    params: Model,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    flags: RunFlags = RunFlags(),
+    compute_dtype=torch.bfloat16,
+    want_cache: bool = False,
+):
+    """Sequence-mode forward: returns (logits f32, aux, per-layer cache or
+    None). ``aux`` (the MoE load-balancing loss) is 0 for dense stacks."""
+    p = cast_params(params, compute_dtype)
+    x, caches = _sequence(p, cfg, batch, flags, compute_dtype, want_cache)
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    return _head(p, cfg, x), aux, caches
+
+
+def forward_hidden(
+    params: Model,
+    cfg: ModelConfig,
+    batch: Dict[str, torch.Tensor],
+    flags: RunFlags = RunFlags(),
+    compute_dtype=torch.bfloat16,
+):
+    """Forward without the LM head: (hidden (B, S, D) after the final norm,
+    aux)."""
+    p = cast_params(params, compute_dtype)
+    x, _ = _sequence(p, cfg, batch, flags, compute_dtype, False)
+    return rms_norm(x, p["final_norm"], cfg.norm_eps), torch.zeros((), dtype=_F32, device=x.device)
+
+
+def head_matrix(params: Model, cfg: ModelConfig, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    p = cast_params(params, compute_dtype)
+    if cfg.tie_embeddings and "embed" in p:
+        return p["embed"].t().to(compute_dtype)
+    return p["lm_head"].to(compute_dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+               kv_quant: str = "none", device=None) -> List[dict]:
+    """Decode cache: one dict per layer. ``kv_quant='int8'`` stores KV as
+    int8 with a per-(token, head) absmax scale in bf16."""
+    if cfg.has_mamba():
+        raise NotImplementedError(MAMBA_TODO)
+    dev = resolve_device(device)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    caches = []
+    for _ in range(cfg.n_layers):
+        if kv_quant == "int8":
+            caches.append({
+                "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+            })
+        elif kv_quant == "none":
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    return caches
+
+
+def decode_step(
+    params: Model,
+    cfg: ModelConfig,
+    cache: List[dict],
+    batch: Dict[str, torch.Tensor],
+    cur_index: int,
+    flags: RunFlags = RunFlags(),
+    compute_dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, List[dict]]:
+    """One new token against the cache at position ``cur_index``. Returns
+    (logits (B, 1, V) f32, cache); the cache is updated in place and the
+    same list is returned. ``flags`` is accepted for the reference's
+    signature; decode attention is always the plain one."""
+    p = cast_params(params, compute_dtype)
+    x = _embed(p, cfg, batch, compute_dtype)
+    mrope_positions = batch.get("mrope_positions")
+    for i, lp in enumerate(p["layers"]):
+        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions)
+    return _head(p, cfg, x), cache

@@ -1,6 +1,6 @@
 """Static guards on the PyTorch port: it imports neither JAX nor the JAX
-package, the CUDA source keeps every floating constant single precision,
-and the kernel build keeps the flags its numerics rest on."""
+package, the CUDA sources keep every floating constant single precision,
+and the kernel builds keep the flags their numerics rest on."""
 import ast
 import os
 import re
@@ -11,14 +11,15 @@ torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
-CU = os.path.join(PORT, "kernels", "phase_sim", "csrc", "phase_sim.cu")
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the gpu-marked tests run where there is no JAX
+JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py")
 
 
-def port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+def port_sources(ext=".py"):
+    out = []
     for d, _, files in os.walk(PORT):
-        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+        out += [os.path.join(d, f) for f in files if f.endswith(ext)]
     return sorted(out)
 
 
@@ -34,8 +35,12 @@ def absolute_imports(path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = port_sources()
-    assert len(files) > 20, files  # the scan sees the whole package
+    files = port_sources() + [os.path.join(ROOT, "chip_smoke.py")]
+    files += [os.path.join(ROOT, "tests", f) for f in JAX_FREE_TESTS]
+    assert len(files) > 40, files  # the scan sees the whole package
+    for module in ("models/model.py", "launch/serve.py", "kernels/flash_attention/ops.py",
+                   "configs/registry.py", "kernels/_build.py"):
+        assert os.path.join(PORT, module) in files, module
     bad = [
         (os.path.relpath(p, ROOT), line, mod)
         for p in files
@@ -45,10 +50,17 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
-def test_cuda_source_has_only_float_constants():
-    """A double literal moves an f32 comparison to double (the retire test
-    ``c_t <= phi * (1 + 1e-9)`` would then retire other tasks)."""
-    with open(CU) as f:
+def test_cuda_sources_are_the_kernels():
+    names = sorted(os.path.basename(p) for p in port_sources(".cu"))
+    assert names == ["flash_attention.cu", "phase_sim.cu"], names
+
+
+@pytest.mark.parametrize("cu", port_sources(".cu"), ids=os.path.basename)
+def test_cuda_source_has_only_float_constants(cu):
+    """A double literal moves f32 arithmetic to double (the phase-sim retire
+    test ``c_t <= phi * (1 + 1e-9)`` would then retire other tasks; the
+    flash kernel's masked scores would leave f32)."""
+    with open(cu) as f:
         src = f.read()
     code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
     floats = re.findall(r"(?<![\w.])(\d+\.\d*(?:e[+-]?\d+)?|\d+e[+-]?\d+)(f?)", code)
@@ -56,13 +68,23 @@ def test_cuda_source_has_only_float_constants():
     doubles = [lit for lit, suffix in floats if not suffix]
     assert not doubles, doubles
     assert "double" not in code
+    # the IEEE functions, never the fast approximations
+    assert not re.search(r"__(expf|logf|fdividef|powf)\b", code)
 
 
-def test_kernel_build_flags():
-    from repro_torch.kernels.phase_sim import kernel
+@pytest.mark.parametrize("name", ["phase_sim", "flash_attention"])
+def test_kernel_build_flags(name):
+    import importlib
 
+    from repro_torch.kernels import _build
+
+    kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
     flags = " ".join(kernel.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-fmad=false" in flags and "fast_math" not in flags
-    assert kernel.BUILD_DIR.parts[-2:] == ("build", "kernels")
-    assert kernel.SOURCE.exists()
+    assert "fast_math" not in flags and "use_fast_math" not in flags
+    if name == "phase_sim":  # its comparisons flip on one contracted multiply-add
+        assert "-fmad=false" in flags
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+    assert _build.BUILD_DIR.parent.parent == type(_build.BUILD_DIR)(ROOT)
+    assert kernel._LIB.source == kernel.SOURCE and kernel.SOURCE.exists()
+    assert kernel._LIB.flags == tuple(kernel.NVCC_FLAGS)
