@@ -23,16 +23,19 @@ printing one JSON line:
                    the phase-sim build; registers, shared memory, spills)
   8. flash_parity  flash kernel vs its plain version on the card: bf16 and
                    f32, Dh 16-256, MHA/GQA/MQA, causal and not, S 128-2048
-                   and a ragged S; ≤ 2e-2 (bf16) / 2e-5 (f32), the
-                   reference's own bars
+                   and a ragged S, and serve's layout (B=4, H=16, KH=8,
+                   Dh=128); ≤ 2e-2 (bf16) / 2e-5 (f32), the reference's
+                   own bars
   9. flash_timing  kernel, plain-version and SDPA times beside the bound at
-                   the Qwen3-1.7B prefill shape (B=4, S=512) and at S=2048
+                   the Qwen3-1.7B prefill shape (B=4, S=512) and at S=2048,
+                   the kernel first held to its plain version on those inputs
  10. serve     generate() on Qwen3-1.7B, 28 layers, seeded random bf16
                weights made on the card: 4 prompts of 512 tokens, 32 new
                tokens each, attn_impl="kernel"; the flash launch count is
-               zeroed just before and read just after (must be 28); then the
-               plain attention path on the same weights (2 layers: held to
-               the reference's bar; 28 layers: reported)
+               zeroed just before and read just after (must be 28); prefill
+               timed as generate() with 0 new tokens; then the plain
+               attention path on the same weights (2 layers: held to the
+               reference's bar; 28 layers: reported)
  11. kernels   one line per ported kernel (launches, error, times, bound)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
@@ -235,6 +238,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # the reference's bars (tests/t
 FLASH_HEADS = {"mha": 8, "gqa": 2, "mqa": 1}  # KV heads under 8 query heads
 FLASH_SEQS = (128, 512, 1024, 2048, 1000)  # 1000: no multiple of the 64-row tile
 PREFILL = dict(b=4, s=512, h=16, kh=8, dh=128)  # Qwen3-1.7B's prefill shape in serve
+PREFILL_SEQS = (512, 1000)  # serve's layout in the parity grid: its S and a ragged one
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 SERVE_ATOL, SERVE_RTOL = 5e-2, 2e-2  # the reference's bar (tests/test_train_serve.py)
 
@@ -244,6 +248,25 @@ def flash_inputs(b, h, kh, s, dh, dtype, seed):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(b, n, s, dh, generator=g, device="cuda").to(dtype) for n in (h, kh, kh)]
+
+
+def flash_check(q, k, v, causal, tol) -> tuple:
+    """The kernel's wrapper against its plain version on the same inputs:
+    (max abs error, max abs error over max |plain|, every element within
+    tol + tol*|plain| and the output in q's dtype)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    got = FK.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_reference(q, k, v, causal=causal)
+    mag = want.double().abs()
+    d = (got.double() - want.double()).abs()
+    ab = d.max().item()
+    rel = ab / max(mag.max().item(), 1e-30)  # against the output's scale
+    return ab, rel, bool((d <= tol + tol * mag).all()) and got.dtype == q.dtype
 
 
 def flash_bound(b, h, kh, s, dh, itemsize, causal=True) -> tuple:
@@ -301,7 +324,7 @@ def flash_phases(card: str, build_future) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.launch.serve import extend_cache, generate
     from repro_torch.models.model import Model, RunFlags, init_params
-    from repro_torch.train.step import make_decode_step, make_prefill_step
+    from repro_torch.train.step import make_prefill_step
 
     # ---- flash_build ---------------------------------------------------------
     try:
@@ -316,30 +339,26 @@ def flash_phases(card: str, build_future) -> dict:
     # ---- flash_parity ----------------------------------------------------------
     t0 = time.perf_counter()
     worst = {dt: {"max_abs_err": 0.0, "max_rel_err": 0.0} for dt in FLASH_TOL}
+    # (b, h, kh, s, dh, layout): one batch row of 8 query heads over the grid,
+    # then serve's own layout (4 batch rows, 16 query heads over 8 KV heads)
+    shapes = [(1, 8, kh, s, dh, heads) for dh in (16, 32, 64, 128, 256)
+              for heads, kh in FLASH_HEADS.items() for s in FLASH_SEQS]
+    shapes += [(PREFILL["b"], PREFILL["h"], PREFILL["kh"], s, PREFILL["dh"], "serve")
+               for s in PREFILL_SEQS]
     failures, n_cases, seed = [], 0, 0
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).split(".")[-1]
-        tol = FLASH_TOL[dt]
-        for dh in (16, 32, 64, 128, 256):
-            for heads, kh in FLASH_HEADS.items():
-                for s in FLASH_SEQS:
-                    for causal in (True, False):
-                        seed += 1
-                        q, k, v = flash_inputs(1, 8, kh, s, dh, dtype, seed)
-                        got = FK.flash_attention_cuda(q, k, v, causal=causal)
-                        torch.cuda.synchronize()
-                        want = attention_reference(q, k, v, causal=causal)
-                        mag = want.double().abs()
-                        d = (got.double() - want.double()).abs()
-                        ab = d.max().item()
-                        rel = ab / max(mag.max().item(), 1e-30)  # against the output's scale
-                        ok = bool((d <= tol + tol * mag).all()) and got.dtype == dtype
-                        w = worst[dt]
-                        w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
-                        n_cases += 1
-                        if not ok:
-                            failures.append({"dtype": dt, "dh": dh, "heads": heads, "s": s,
-                                             "causal": causal, "max_abs_err": ab})
+        for b, h, kh, s, dh, layout in shapes:
+            for causal in (True, False):
+                seed += 1
+                q, k, v = flash_inputs(b, h, kh, s, dh, dtype, seed)
+                ab, rel, ok = flash_check(q, k, v, causal, FLASH_TOL[dt])
+                w = worst[dt]
+                w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
+                n_cases += 1
+                if not ok:
+                    failures.append({"dtype": dt, "b": b, "h": h, "kh": kh, "dh": dh,
+                                     "layout": layout, "s": s, "causal": causal, "max_abs_err": ab})
     if failures:
         fail("flash_parity", "kernel disagrees with the plain version", failures=failures[:12],
              n_failed=len(failures), n_cases=n_cases)
@@ -354,6 +373,12 @@ def flash_phases(card: str, build_future) -> dict:
         shape = dict(PREFILL, s=s)
         b, h, kh, dh = shape["b"], shape["h"], shape["kh"], shape["dh"]
         q, k, v = flash_inputs(b, h, kh, s, dh, torch.bfloat16, seed=s)
+        ab, rel, ok = flash_check(q, k, v, True, FLASH_TOL["bfloat16"])
+        w = worst["bfloat16"]
+        w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
+        if not ok:
+            fail("flash_timing", "kernel disagrees with the plain version on the timed inputs",
+                 shape=shape, max_abs_err=ab, tol=FLASH_TOL["bfloat16"])
         ms = cuda_time_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50)
         plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, causal=True), 10)
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
@@ -362,7 +387,7 @@ def flash_phases(card: str, build_future) -> dict:
         timings[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         emit("flash_timing", ok=True, shape=shape, dtype="bfloat16", causal=True, bytes=nbytes,
-             ops=nops, card=card, **timings[s])
+             ops=nops, max_abs_err=ab, max_rel_err=rel, card=card, **timings[s])
 
     # ---- serve: Qwen3-1.7B, full width and depth, through the kernel -------------
     cfg = get_config("qwen3-1.7b")
@@ -382,44 +407,42 @@ def flash_phases(card: str, build_future) -> dict:
     launches = FK.flash_attention_cuda.launches
     peak = torch.cuda.max_memory_allocated()
 
-    # the same work step by step, for the prefill / decode breakdown
-    prefill, decode = make_prefill_step(cfg, kernel_flags), make_decode_step(cfg, kernel_flags)
-    with torch.inference_mode():
+    # the prefill and cache extension alone, through the same entry point
+    # (median of 3); a decode step is the rest of the counted run's time
+    walls = []
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(model, prompt)
+        _, first = generate(model, cfg, prompt, 0, max_len=SERVE_PROMPT + SERVE_NEW,
+                            flags=kernel_flags)
         torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        first = logits
-        cache = extend_cache(cfg, cache, SERVE_PROMPT + SERVE_NEW)
-        tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(SERVE_NEW):
-            logits, cache = decode(model, cache, {"tokens": tok[:, None]}, SERVE_PROMPT + i)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_NEW
-    # where the time goes: one prefill and four decode steps under the profiler
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = sorted(walls)[1]
+    decode_ms = (wall * 1e3 - prefill_ms) / SERVE_NEW
+    # where the time goes: generate with 0 and with 4 new tokens under the profiler
+    profile = {
+        "prefill": device_profile(lambda: generate(
+            model, cfg, prompt, 0, max_len=SERVE_PROMPT + SERVE_NEW, flags=kernel_flags)),
+        "prefill_and_4_steps": device_profile(lambda: generate(
+            model, cfg, prompt, 4, max_len=SERVE_PROMPT + SERVE_NEW, flags=kernel_flags)),
+    }
+    # the cache generate builds: the prefill step's, extended to the capacity
     with torch.inference_mode():
-        prof_prefill = device_profile(lambda: prefill(model, prompt))
-        tok = logits.argmax(-1)
-        prof_decode = device_profile(lambda: [decode(model, cache, {"tokens": tok[:, None]},
-                                                     SERVE_PROMPT + SERVE_NEW - 1)
-                                              for _ in range(4)])
+        cache_dev = extend_cache(cfg, make_prefill_step(cfg, kernel_flags)(model, prompt)[1],
+                                 SERVE_PROMPT + SERVE_NEW)[0]["k"].device
     summary = dict(
         model="qwen3-1.7b", layers=cfg.n_layers, d_model=cfg.d_model, batch=SERVE_BATCH,
         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall, prefill_ms=prefill_ms,
-        decode_ms_per_step=decode_ms, max_memory_allocated=peak, flash_launches=launches,
-        params_device=str(model.device), cache_device=str(cache[0]["k"].device), card=card,
-        profile={"prefill": prof_prefill, "decode_4_steps": prof_decode},
+        prefill_ms_runs=walls, decode_ms_per_step=decode_ms, max_memory_allocated=peak,
+        flash_launches=launches, params_device=str(model.device),
+        cache_device=str(cache_dev), card=card, profile=profile,
     )
-    if model.device.type != "cuda" or cache[0]["k"].device.type != "cuda":
+    if model.device.type != "cuda" or cache_dev.type != "cuda":
         fail("serve", "the model or its cache is not on the card", **summary)
     if launches != cfg.n_layers:
         fail("serve", f"{launches} flash launches, want one per layer ({cfg.n_layers})", **summary)
-    finite = all(bool(torch.isfinite(x).all()) for x in (last, first, logits))
+    finite = all(bool(torch.isfinite(x).all()) for x in (last, first))
     valid = tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
     if not (finite and valid):

@@ -29,13 +29,12 @@
 //
 // Layout: q, o (B, H, Sq, Dh); k, v (B, KH, Skv, Dh); contiguous, 16-byte
 // aligned (the wrapper checks); Dh one of 16, 32, 64, 128, 256 (one template
-// instance each); f32, bf16 or f16. One block of 256 threads per (q tile, head,
+// instance each); f32 or bf16. One block of 256 threads per (q tile, head,
 // batch row); thread (ty, tx) = (tid / 16, tid % 16) owns query rows
 // ty + 16 i (i < 4), score columns tx + 16 j (j < 4) of each KV tile, and
 // output columns tx + 16 d (d < Dh / 16). The 16 threads of a row are one
 // half-warp, so row max and row sum are shuffles.
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -53,14 +52,12 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 // Row stride (elements) of the Q and K tiles: Dh plus 4 bytes, so the 16
 // key rows a half-warp reads at one d fall in 16 different banks.
@@ -237,7 +234,7 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int h
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. Returns cudaGetLastError() of the
+// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() of the
 // launch (0 on success); never synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
                                       int b, int h, int kh, int sq, int skv, int dh, int causal,
@@ -246,7 +243,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     switch (dtype) {
         case 0: return launch_dh<float>(q, k, v, o, b, h, kh, sq, skv, dh, causal, scale, st);
         case 1: return launch_dh<__nv_bfloat16>(q, k, v, o, b, h, kh, sq, skv, dh, causal, scale, st);
-        case 2: return launch_dh<__half>(q, k, v, o, b, h, kh, sq, skv, dh, causal, scale, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

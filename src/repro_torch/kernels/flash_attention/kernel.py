@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's template instances (16: reduced configs)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 build_log = ""  # nvcc's output (-Xptxas -v: registers, shared memory, spills)
 

@@ -42,7 +42,8 @@ def generate(
     """Greedy generation. prompt: {'tokens': (B, S)} (or 'embeds'), on the
     parameters' device. Returns (generated (B, n_tokens), the logits (B, V)
     of the last step). Each decode step writes its KV into the cache in
-    place."""
+    place. ``n_tokens=0`` runs the prefill and cache extension only and
+    returns (B, 0) tokens with the prefill's logits."""
     dev = params.device
     for key, t in prompt.items():
         if t.device != dev:
@@ -66,4 +67,6 @@ def generate(
                 batch = {"embeds": torch.zeros((bsz, 1, cfg.d_model), dtype=torch.bfloat16, device=dev)}
             logits, cache = decode(params, cache, batch, s0 + i)
             tok = logits.argmax(-1)
+        if not outs:
+            return torch.empty((bsz, 0), dtype=torch.long, device=dev), logits
         return torch.stack(outs, 1), logits

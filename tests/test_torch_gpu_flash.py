@@ -60,8 +60,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 4, 64, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(2, 3), q, q)
-    with pytest.raises(TypeError):
-        flash_attention_cuda(q.double(), q.double(), q.double())
+    for dtype in (torch.float64, torch.float16):  # f32 and bf16 only
+        with pytest.raises(TypeError):
+            flash_attention_cuda(q.to(dtype), q.to(dtype), q.to(dtype))
 
 
 @pytest.mark.gpu

@@ -105,6 +105,17 @@ def test_generate_matches_reference_tokens(setup):
         assert np.array_equal(tokens[b, :n_sure].numpy(), ref_tokens[b, :n_sure]), (b, n_sure)
 
 
+def test_generate_zero_tokens_is_the_prefill(setup):
+    cfg, model, prompt, _, ref_logits = setup
+    toks = {"tokens": torch.from_numpy(prompt).long()}
+    tokens, last = PS.generate(model, cfg, toks, 0, flags=RunFlags(attn_impl="kernel"))
+    with torch.inference_mode():
+        want, _ = PT.make_prefill_step(cfg, RunFlags(attn_impl="kernel"))(model, toks)
+    assert tokens.shape == (B, 0) and tokens.dtype == torch.long
+    assert torch.equal(last, want)
+    np.testing.assert_allclose(last.numpy(), ref_logits[:, 0], atol=ATOL, rtol=RTOL)
+
+
 def test_extend_cache_and_device_checks(setup):
     cfg, model, prompt, _, _ = setup
     with torch.inference_mode():
