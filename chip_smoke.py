@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
 
-Drives the port's two paths and checks them: FARSI's price-and-search loop,
-``Explorer.run()`` on the AR workload complex, through the CUDA phase-sim
-kernel; and serving Qwen3-1.7B at full width and depth (``generate``: prefill
-and greedy decode) through the CUDA flash-attention kernel. Phases, each
-printing one JSON line:
+Drives the port's three paths and checks them: FARSI's price-and-search
+loop, ``Explorer.run()`` on the AR workload complex, through the CUDA
+phase-sim kernel; serving Qwen3-1.7B at full width and depth (``generate``:
+prefill and greedy decode) through the CUDA flash-attention kernel; and
+serving Mamba2-370m at full width and depth through the CUDA SSD and RMSNorm
+kernels. Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
@@ -36,7 +37,32 @@ printing one JSON line:
                timed as generate() with 0 new tokens; then the plain
                attention path on the same weights (2 layers: held to the
                reference's bar; 28 layers: reported)
- 11. kernels   one line per ported kernel (launches, error, times, bound)
+ 11. ssd_build, rmsnorm_build   nvcc builds of the SSD and RMSNorm kernels
+               (started in parallel with the other two builds)
+ 12. ssd_parity    SSD kernel vs its plain version on the card, y and the
+                   final state: tests/test_kernels.py's SSD_CASES, the serving
+                   shape (B=4, S=512, H=32, P=64, N=128) in bf16 and f32 at
+                   chunk 64 and 128, and S=2048; y <= 5e-2 (bf16) / 1e-3
+                   (f32), h <= 1e-3, the reference's own bars
+ 13. rmsnorm_parity  RMSNorm kernel vs its plain version: test_kernels.py's
+                   shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048)
+                   and a ragged (1000, 1024); f32, bf16, bf16 with an f32
+                   weight; <= 1e-5 (f32) / 2e-2 (bf16)
+ 14. ssd_timing    kernel and plain-version times beside the bound at the
+                   serving shape (bf16, chunk 64) and at S=2048, the kernel
+                   first held to its plain version on those inputs
+ 15. rmsnorm_timing  kernel, plain-version and F.rms_norm times beside the
+                   bound at the serving shapes
+ 16. serve_mamba   generate() on Mamba2-370m, 48 layers, seeded random bf16
+               weights made on the card: 4 prompts of 512 tokens, 32 new
+               tokens each, ssd_impl="kernel", norm_impl="kernel"; the launch
+               counts are zeroed just before and read just after (must be
+               48 SSD, one per layer in the prefill, and 97 x 33 = 3,201
+               RMSNorm: norm1 and the gated norm of each layer plus the final
+               norm, in the prefill and in each of the 32 decode calls);
+               timed as serve is; then the plain path on the same weights (2
+               layers: held to the reference's bar; 48 layers: reported)
+ 17. kernels   one line per ported kernel (launches, error, times, bound)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object. Any failed check ends the run with a non-zero exit code and no
@@ -243,6 +269,20 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 SERVE_ATOL, SERVE_RTOL = 5e-2, 2e-2  # the reference's bar (tests/test_train_serve.py)
 
 
+def report_build(phase, module, future) -> None:
+    """The phase line of a kernel build started in the pool: seconds, the
+    library, the flags and ptxas's per-instance registers, shared memory
+    and spills; nvcc's own message if it failed."""
+    try:
+        lib, seconds = future.result()
+    except RuntimeError as e:  # nvcc's own message
+        fail(phase, str(e)[-4000:])
+    ptxas = [ln.strip() for ln in module.build_log.splitlines()
+             if "registers" in ln or "spill" in ln or "smem" in ln or "entry function" in ln]
+    emit(phase, ok=True, seconds=seconds, library=os.path.relpath(lib, HERE),
+         flags=" ".join(module.NVCC_FLAGS), ptxas=ptxas)
+
+
 def flash_inputs(b, h, kh, s, dh, dtype, seed):
     import torch
 
@@ -326,15 +366,7 @@ def flash_phases(card: str, build_future) -> dict:
     from repro_torch.models.model import Model, RunFlags, init_params
     from repro_torch.train.step import make_prefill_step
 
-    # ---- flash_build ---------------------------------------------------------
-    try:
-        lib, seconds = build_future.result()
-    except RuntimeError as e:  # nvcc's own message
-        fail("flash_build", str(e)[-4000:])
-    ptxas = [ln.strip() for ln in FK.build_log.splitlines()  # per template instance
-             if "registers" in ln or "spill" in ln or "smem" in ln or "entry function" in ln]
-    emit("flash_build", ok=True, seconds=seconds, library=os.path.relpath(lib, HERE),
-         flags=" ".join(FK.NVCC_FLAGS), ptxas=ptxas)
+    report_build("flash_build", FK, build_future)
 
     # ---- flash_parity ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -485,6 +517,303 @@ def flash_phases(card: str, build_future) -> dict:
     }
 
 
+# ---- the Mamba-2 serving path and its SSD and RMSNorm kernels -------------------
+SSD_Y_TOL = {"bfloat16": 5e-2, "float32": 1e-3}  # the reference's bars (tests/test_kernels.py)
+SSD_H_TOL = 1e-3
+# (B, S, H, P, N, chunk, x dtype, B/C dtype): tests/test_kernels.py's SSD_CASES
+# (B and C in f32, as the reference draws them), then Mamba2-370m's prefill in
+# serve_mamba (B and C in x's dtype, slices of one projection as the model
+# passes them) at chunk 64 (the model's) and 128 (ops.ssd's default), and S=2048
+SSD_CASES = [
+    (2, 128, 4, 16, 8, 32, "float32", "float32"),
+    (1, 256, 2, 64, 128, 128, "float32", "float32"),
+    (2, 64, 8, 32, 16, 16, "float32", "float32"),
+    (1, 128, 4, 64, 32, 64, "bfloat16", "float32"),
+] + [(4, 512, 32, 64, 128, q, dt, dt) for dt in ("bfloat16", "float32") for q in (64, 128)] + [
+    (4, 2048, 32, 64, 128, 64, "bfloat16", "bfloat16"),
+]
+SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chunk 64
+RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
+# tests/test_kernels.py's shapes, serve_mamba's prefill and decode rows, a ragged count
+RMS_SHAPES = [(64, 128), (2, 32, 64), (256, 512), (2048, 1024), (2048, 2048), (4, 1024),
+              (4, 2048), (1000, 1024)]
+RMS_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"))  # x, w
+RMS_TIMED = ((2048, 1024), (2048, 2048), (4, 1024), (4, 2048))  # the headline first
+
+
+def ssd_inputs(b, s, h, p, n, dtype, bc_dtype, seed):
+    """x, dt = softplus(normal), a = -exp(normal), B, C: the reference's
+    test recipe, on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, s, h, generator=g, device="cuda"))
+    a = -torch.exp(torch.randn(h, generator=g, device="cuda"))
+    bm = torch.randn(b, s, n, generator=g, device="cuda").to(bc_dtype)
+    cm = torch.randn(b, s, n, generator=g, device="cuda").to(bc_dtype)
+    return x, dt, a, bm, cm
+
+
+def ssd_check(args, chunk, y_tol) -> dict:
+    """The kernel's wrapper against its plain version on the same inputs:
+    worst abs errors of y and h, y's abs error over max |plain y|, and
+    whether every element is within tol + tol*|plain| in the right dtypes."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ssd_reference
+
+    y, h = SK.ssd_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssd_reference(*args, chunk=chunk)
+    dy = (y.double() - y_ref.double()).abs()
+    dh = (h.double() - h_ref.double()).abs()
+    ok = bool((dy <= y_tol + y_tol * y_ref.double().abs()).all()) and bool(
+        (dh <= SSD_H_TOL + SSD_H_TOL * h_ref.double().abs()).all())
+    ok = ok and y.dtype == args[0].dtype and h.dtype == torch.float32
+    y_abs = dy.max().item()
+    return dict(y_abs=y_abs, y_rel=y_abs / max(y_ref.double().abs().max().item(), 1e-30),
+                h_abs=dh.max().item(), ok=ok)
+
+
+def ssd_bound(b, s, h, p, n, q, x_item, bc_item) -> tuple:
+    """Least time for one call: x and dt, B, C read once, y and the final h
+    written once, over HBM bandwidth; the products over the causal pairs of
+    each chunk (C.B^T and its product with x dt: 2(N + P) per pair, Q(Q+1)/2
+    pairs) and the carried state (C.h and the state update: 4PN per token),
+    per head, over the bf16 peak."""
+    nbytes = 2 * b * s * h * p * x_item + 4 * b * s * h + 2 * b * s * n * bc_item + 4 * b * h * p * n
+    ops = float(b * h * (s // q)) * (q * (q + 1) * (n + p) + 4 * q * p * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def rms_bound(rows, d, x_item, w_item) -> tuple:
+    """Least time for one call: x read once, w read once, the output written
+    once, over HBM bandwidth; 4 f32 operations an element over the f32 peak."""
+    nbytes = 2 * rows * d * x_item + d * w_item
+    ops = 4.0 * rows * d
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def mamba_phases(card: str, ssd_build, rms_build) -> list:
+    """Phases 11-16; returns the SSD and RMSNorm kernels' entries of the
+    kernels line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.rmsnorm import kernel as NK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ref import ssd_reference
+    from repro_torch.launch.serve import extend_cache, generate
+    from repro_torch.models.model import Model, RunFlags, init_params
+    from repro_torch.train.step import make_prefill_step
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    report_build("ssd_build", SK, ssd_build)
+    report_build("rmsnorm_build", NK, rms_build)
+
+    # ---- ssd_parity ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    ssd_worst = {"y_abs": 0.0, "y_rel": 0.0, "h_abs": 0.0}
+    cases, failures = [], []
+    for i, (b, s, h, p, n, q, xd, bcd) in enumerate(SSD_CASES):
+        args = ssd_inputs(b, s, h, p, n, dtypes[xd], dtypes[bcd], seed=100 + i)
+        r = ssd_check(args, q, SSD_Y_TOL[xd])
+        case = dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=bcd, **r)
+        cases.append(case)
+        for key in ssd_worst:
+            ssd_worst[key] = max(ssd_worst[key], r[key])
+        if not r["ok"]:
+            failures.append(case)
+    if failures:
+        fail("ssd_parity", "kernel disagrees with the plain version", failures=failures,
+             n_cases=len(cases))
+    emit("ssd_parity", ok=True, cases=cases, worst=ssd_worst,
+         tol={"y": SSD_Y_TOL, "h": SSD_H_TOL},
+         check="|kernel - plain| <= tol + tol*|plain| everywhere, for y and h_final",
+         seconds=time.perf_counter() - t0)
+
+    # ---- rmsnorm_parity -------------------------------------------------------------
+    t0 = time.perf_counter()
+    rms_worst = {dt: {"max_abs_err": 0.0, "max_rel_err": 0.0} for dt in RMS_TOL}
+    failures, n_cases = [], 0
+    for shape in RMS_SHAPES:
+        for xd, wd in RMS_DTYPES:
+            g = torch.Generator(device="cuda").manual_seed(shape[-1] + len(shape))
+            x = torch.randn(shape, generator=g, device="cuda").to(dtypes[xd])
+            w = (torch.randn(shape[-1], generator=g, device="cuda") * 0.1).to(dtypes[wd])
+            got = NK.rmsnorm_cuda(x.reshape(-1, shape[-1]), w).reshape(shape)
+            torch.cuda.synchronize()
+            want = rmsnorm_reference(x, w)
+            d = (got.double() - want.double()).abs()
+            tol = RMS_TOL[xd]
+            ab = d.max().item()
+            rel = ab / max(want.double().abs().max().item(), 1e-30)
+            wst = rms_worst[xd]
+            wst["max_abs_err"], wst["max_rel_err"] = max(wst["max_abs_err"], ab), max(wst["max_rel_err"], rel)
+            n_cases += 1
+            if not (bool((d <= tol + tol * want.double().abs()).all()) and got.dtype == x.dtype):
+                failures.append(dict(shape=shape, dtype=xd, w_dtype=wd, max_abs_err=ab))
+    if failures:
+        fail("rmsnorm_parity", "kernel disagrees with the plain version", failures=failures,
+             n_cases=n_cases)
+    emit("rmsnorm_parity", ok=True, cases=n_cases, worst=rms_worst, tol=RMS_TOL,
+         check="|kernel - plain| <= tol + tol*|plain| everywhere", seconds=time.perf_counter() - t0)
+
+    # ---- ssd_timing -------------------------------------------------------------------
+    ssd_t = {}
+    for s in (SSD_TIMED[1], 2048):
+        b, _, h, p, n, q = SSD_TIMED
+        args = ssd_inputs(b, s, h, p, n, torch.bfloat16, torch.bfloat16, seed=s)
+        r = ssd_check(args, q, SSD_Y_TOL["bfloat16"])
+        if not r["ok"]:
+            fail("ssd_timing", "kernel disagrees with the plain version on the timed inputs",
+                 s=s, check=r)
+        for key in ssd_worst:
+            ssd_worst[key] = max(ssd_worst[key], r[key])
+        ms = cuda_time_ms(lambda: SK.ssd_cuda(*args, q), 50)
+        plain_ms = cuda_time_ms(lambda: ssd_reference(*args, chunk=q), 10)
+        bound_ms, bound_by, nbytes, nops = ssd_bound(b, s, h, p, n, q, 2, 2)
+        ssd_t[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        emit("ssd_timing", ok=True, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q), dtype="bfloat16",
+             bytes=nbytes, ops=nops, check=r, card=card, **ssd_t[s])
+
+    # ---- rmsnorm_timing -----------------------------------------------------------------
+    rms_t = {}
+    for rows, d in RMS_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(d, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        want = rmsnorm_reference(x, w)
+        got = NK.rmsnorm_cuda(x, w)
+        dd = (got.double() - want.double()).abs()
+        if not bool((dd <= RMS_TOL["bfloat16"] * (1 + want.double().abs())).all()):
+            fail("rmsnorm_timing", "kernel disagrees with the plain version on the timed inputs",
+                 shape=[rows, d], max_abs_err=dd.max().item())
+        w1 = (1.0 + w.float()).to(torch.bfloat16)  # the library's weight, made outside the timing
+        ms = cuda_time_ms(lambda: NK.rmsnorm_cuda(x, w), 200)
+        plain_ms = cuda_time_ms(lambda: rmsnorm_reference(x, w), 50)
+        library_ms = cuda_time_ms(lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6), 200)
+        bound_ms, bound_by, nbytes, nops = rms_bound(rows, d, 2, 2)
+        rms_t[(rows, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+        emit("rmsnorm_timing", ok=True, shape=[rows, d], dtype="bfloat16", w_dtype="bfloat16",
+             bytes=nbytes, ops=nops, max_abs_err=dd.max().item(), card=card, **rms_t[(rows, d)])
+
+    # ---- serve_mamba: Mamba2-370m, full width and depth, through both kernels -------------
+    cfg = get_config("mamba2-370m")
+    model, init_s = timed(lambda: init_params(cfg, seed=0, dtype=torch.bfloat16))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                                      generator=g, device="cuda")}
+    kernel_flags = RunFlags(ssd_impl="kernel", norm_impl="kernel")
+    generate(model, cfg, prompt, 1, flags=kernel_flags)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SK.ssd_cuda.launches = NK.rmsnorm_cuda.launches = 0
+    t0 = time.perf_counter()
+    tokens, last = generate(model, cfg, prompt, SERVE_NEW, flags=kernel_flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ssd_launches, rms_launches = SK.ssd_cuda.launches, NK.rmsnorm_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, first = generate(model, cfg, prompt, 0, max_len=SERVE_PROMPT + SERVE_NEW,
+                            flags=kernel_flags)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = sorted(walls)[1]
+    decode_ms = (wall * 1e3 - prefill_ms) / SERVE_NEW
+    profile = {
+        "prefill": device_profile(lambda: generate(
+            model, cfg, prompt, 0, max_len=SERVE_PROMPT + SERVE_NEW, flags=kernel_flags)),
+        "prefill_and_4_steps": device_profile(lambda: generate(
+            model, cfg, prompt, 4, max_len=SERVE_PROMPT + SERVE_NEW, flags=kernel_flags)),
+    }
+    with torch.inference_mode():
+        cache = extend_cache(cfg, make_prefill_step(cfg, kernel_flags)(model, prompt)[1],
+                             SERVE_PROMPT + SERVE_NEW)
+    cache_devices = sorted({str(t.device) for c in cache for t in c.values()})
+    # per call (the prefill, then each decode step): norm1 and the gated norm of
+    # every layer, and the final norm
+    want_rms = (2 * cfg.n_layers + 1) * (1 + SERVE_NEW)
+    summary = dict(
+        model="mamba2-370m", layers=cfg.n_layers, d_model=cfg.d_model, batch=SERVE_BATCH,
+        prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        tokens_per_s=SERVE_BATCH * SERVE_NEW / wall, prefill_ms=prefill_ms,
+        prefill_ms_runs=walls, decode_ms_per_step=decode_ms, max_memory_allocated=peak,
+        ssd_launches=ssd_launches, rmsnorm_launches=rms_launches,
+        want_launches={"ssd": cfg.n_layers, "rmsnorm": want_rms},
+        params_device=str(model.device), cache_devices=cache_devices, card=card, profile=profile,
+    )
+    if model.device.type != "cuda" or cache_devices != ["cuda:0"]:
+        fail("serve_mamba", "the model or its cache is not on the card", **summary)
+    if ssd_launches != cfg.n_layers or rms_launches != want_rms:
+        fail("serve_mamba", "kernel launches differ from one SSD per layer and "
+             "2 x layers + 1 norms per call", **summary)
+    finite = all(bool(torch.isfinite(x).all()) for x in (last, first))
+    valid = tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    if not (finite and valid):
+        fail("serve_mamba", "non-finite logits or invalid token ids", finite=finite, valid=valid,
+             **summary)
+
+    # the plain path (ssd_reference, layers.rms_norm) on the same weights: 2
+    # layers held to the reference's bar, all 48 reported
+    tree = model.tree()
+    shallow = Model(dict(tree, layers=tree["layers"][:2]))
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    compare = {}
+    with torch.inference_mode():
+        for name, c, m in (("2_layers", cfg2, shallow), ("48_layers", cfg, model)):
+            got = make_prefill_step(c, kernel_flags)(m, prompt)[0]
+            want = make_prefill_step(c, RunFlags())(m, prompt)[0]
+            d = (got - want).abs()
+            compare[name] = dict(
+                max_abs_diff=d.max().item(),
+                within_bar=bool((d <= SERVE_ATOL + SERVE_RTOL * want.abs()).all()),
+                top1_agree=(got.argmax(-1) == want.argmax(-1)).float().mean().item())
+    if not compare["2_layers"]["within_bar"]:
+        fail("serve_mamba", "2-layer kernel path disagrees with the plain path", plain=compare,
+             **summary)
+    emit("serve_mamba", ok=True, plain=compare, bar={"atol": SERVE_ATOL, "rtol": SERVE_RTOL},
+         **summary)
+
+    st, rt = ssd_t[SSD_TIMED[1]], rms_t[RMS_TIMED[0]]
+    return [{
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:27",
+        "launches": ssd_launches,
+        "max_abs_err": ssd_worst["y_abs"],
+        "max_rel_err": ssd_worst["y_rel"],
+        "h_max_abs_err": ssd_worst["h_abs"],
+        **st,
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:18",
+        "launches": rms_launches,
+        "max_abs_err": max(w["max_abs_err"] for w in rms_worst.values()),
+        "max_rel_err": max(w["max_rel_err"] for w in rms_worst.values()),
+        **rt,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -515,9 +844,13 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as NK
+    from repro_torch.kernels.ssd import kernel as SK
 
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(3)  # one nvcc per source, all started together
     flash_build = pool.submit(timed, FK.build)
+    ssd_build = pool.submit(timed, SK.build)
+    rms_build = pool.submit(timed, NK.build)
     pool.shutdown(wait=False)
     t0 = time.perf_counter()
     lib = K.build()
@@ -641,6 +974,7 @@ def main() -> int:
     emit("golden", ok=True, cells=replayed)
 
     flash = flash_phases(card, flash_build)
+    ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
 
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape
@@ -657,7 +991,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, flash]}), flush=True)
+    }, flash, ssd_entry, rms_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

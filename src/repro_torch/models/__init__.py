@@ -1,1 +1,1 @@
-"""The decoder stack (dense attention architectures) in PyTorch."""
+"""The decoder stack (attention and Mamba-2 architectures) in PyTorch."""

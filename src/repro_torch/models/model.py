@@ -1,5 +1,6 @@
-"""Generic decoder stack: instantiates the dense attention architectures from
-their ``ModelConfig``; the torch counterpart of ``repro.models.model``.
+"""Generic decoder stack: instantiates the attention and Mamba-2
+architectures from their ``ModelConfig``; the torch counterpart of
+``repro.models.model``.
 
 Layers are grouped into a repeating *cycle* of positions as in the
 reference; where the reference scans over cycles (``lax.scan``), the port
@@ -7,7 +8,7 @@ loops over layers in Python, layer ``i`` sitting at cycle position
 ``i % cycle_len``. Two execution modes share one block implementation:
 
   prefill  — full sequence (``forward``), optionally emitting a per-layer
-             KV cache
+             cache (KV, or the Mamba-2 conv window and SSM state)
   decode   — one token against the cache (``decode_step``), which is
              updated IN PLACE (the reference returns a new cache)
 
@@ -15,20 +16,33 @@ Parameters live in a :class:`Model`, a module tree that mirrors the
 reference's pytree key for key, one entry of ``layers`` per layer (the
 reference stacks each cycle position over cycles). Everything runs on the
 device of the parameters; the constructors default to CUDA and raise
-without it. Mamba-2 blocks and MoE layers are not ported yet: they raise
-``NotImplementedError``.
+without it. Attention and Mamba-2 blocks are ported; MoE layers are not yet
+and raise ``NotImplementedError``.
+
+Two ``RunFlags`` switches send the stack through the port's CUDA kernels
+(their plain versions on CPU tensors): ``ssd_impl="kernel"`` runs every
+Mamba-2 prefill SSD through ``kernels.ssd.ops.ssd`` (the reference's model
+always calls ``ssd_reference``; its ``mamba2_apply(ssd_fn=...)`` is the swap
+point), and ``norm_impl="kernel"`` runs every RMSNorm of the stack (norm1,
+norm2, q/k-norm, the Mamba gated norm and the final norm) through
+``kernels.rmsnorm.ops.rmsnorm``. The defaults are the reference's plain
+functions.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.rmsnorm.ops import rmsnorm
+from ..kernels.ssd.ops import ssd
+from ..kernels.ssd.ref import ssd_reference
 from .flash_ref import flash_attention_ref
 from .layers import (
     _mm,
@@ -39,23 +53,43 @@ from .layers import (
     mlp_apply,
     rms_norm,
 )
+from .mamba2 import mamba2_cache_init, mamba2_decode, mamba2_init, mamba2_prefill
 
-MAMBA_TODO = ("Mamba-2 blocks are not ported yet (ROADMAP queue 1 item 1: "
-              "models/mamba2.py with the SSD kernel)")
-MOE_TODO = "MoE layers are not ported yet (ROADMAP queue 1 item 1: models/moe.py)"
+MOE_TODO = "MoE layers are not ported yet (ROADMAP queue 1: models/moe.py)"
 
 _F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Per-call execution knobs: the reference's attention knobs. Its
-    ``remat``, ``ssd_chunk`` and ``moe_impl`` come with the training,
-    Mamba-2 and MoE slices."""
+    """Per-call execution knobs: the reference's attention knobs and
+    ``ssd_chunk``, and the port's kernel switches ``ssd_impl`` and
+    ``norm_impl`` (module docstring). The reference's ``remat`` and
+    ``moe_impl`` come with the training and MoE slices."""
 
     attn_impl: str = "auto"  # "auto" | "full" | "blockwise" | "kernel"
     q_block: int = 512
     kv_block: int = 1024
+    ssd_chunk: int = 64
+    ssd_impl: str = "reference"  # "reference" | "kernel"
+    norm_impl: str = "reference"  # "reference" | "kernel"
+
+
+def norm_fn(flags: RunFlags) -> Callable:
+    """The RMSNorm ``flags.norm_impl`` selects: ``layers.rms_norm`` or the
+    kernel's ``ops.rmsnorm`` (same signature ``(x, w, eps)``)."""
+    if flags.norm_impl == "reference":
+        return rms_norm
+    if flags.norm_impl == "kernel":
+        return rmsnorm
+    raise ValueError(f"unknown norm_impl {flags.norm_impl!r}")
+
+
+def _ssd_fn(flags: RunFlags, s: int) -> Callable:
+    impl = {"reference": ssd_reference, "kernel": ssd}.get(flags.ssd_impl)
+    if impl is None:
+        raise ValueError(f"unknown ssd_impl {flags.ssd_impl!r}")
+    return partial(impl, chunk=min(flags.ssd_chunk, s))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,10 +141,9 @@ class Model(ParamTree):
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> Model:
     """Random weights with the reference's distributions: matrices normal ×
     1/√fan_in, the embedding normal × 0.02, the untied LM head normal /
-    √d_model, norms zero; drawn in f32 from a ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (CUDA by default), then cast to ``dtype``."""
-    if cfg.has_mamba():
-        raise NotImplementedError(MAMBA_TODO)
+    √d_model, norms zero, the Mamba-2 blocks as ``mamba2.mamba2_init``;
+    drawn in f32 from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (CUDA by default), then cast to ``dtype``."""
     if cfg.has_moe():
         raise NotImplementedError(MOE_TODO)
     dev = resolve_device(device)
@@ -125,14 +158,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     d, h, kh, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     layers = []
     for i in range(cfg.n_layers):
-        mixer = {
-            "wq": normal((d, h * dh), 1.0 / math.sqrt(d)),
-            "wk": normal((d, kh * dh), 1.0 / math.sqrt(d)),
-            "wv": normal((d, kh * dh), 1.0 / math.sqrt(d)),
-            "wo": normal((h * dh, d), 1.0 / math.sqrt(h * dh)),
-        }
-        if cfg.qk_norm:
-            mixer["q_norm"], mixer["k_norm"] = zeros(dh), zeros(dh)
+        if cfg.block_kinds[i % cfg.cycle_len] == "attn":
+            mixer = {
+                "wq": normal((d, h * dh), 1.0 / math.sqrt(d)),
+                "wk": normal((d, kh * dh), 1.0 / math.sqrt(d)),
+                "wv": normal((d, kh * dh), 1.0 / math.sqrt(d)),
+                "wo": normal((h * dh, d), 1.0 / math.sqrt(h * dh)),
+            }
+            if cfg.qk_norm:
+                mixer["q_norm"], mixer["k_norm"] = zeros(dh), zeros(dh)
+        else:
+            mixer = mamba2_init(normal, cfg, dtype, dev)
         layer = {"norm1": zeros(d), "mixer": mixer}
         if cfg.mlp_kind_at(i % cfg.cycle_len) == "dense":
             mlp = {"wi_gate": normal((d, ff), 1.0 / math.sqrt(d)),
@@ -150,17 +186,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
 
 
 def cast_params(params: Model, compute_dtype) -> Dict[str, Any]:
-    """Mixed-precision policy: f32 matrices compute in ``compute_dtype``;
-    the MoE router and every 1-D tensor (norm scales, SSM scalars) keep
-    their precision. Returns the nested dict; a tensor already in its dtype
-    is returned as is (no copy)."""
+    """Mixed-precision policy, as the reference computes it: every f32
+    tensor under ``layers`` (matrices, norm scales, the Mamba-2 conv bias and
+    SSM scalars) computes in ``compute_dtype``, except the MoE router; the
+    top-level tensors follow the rank rule, so f32 ``embed`` and ``lm_head``
+    are cast and the 1-D ``final_norm`` keeps f32. (The reference's docstring
+    keeps 1-D norm scales and SSM scalars in full precision, but it stacks
+    every per-layer tensor over cycles before casting by rank, so all of
+    them are at least 2-D there and are cast.) Returns the nested dict; a
+    tensor already in its dtype is returned as is (no copy)."""
 
-    def walk(node, name=""):
+    def walk(node, name="", in_layers=False):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, k, in_layers or k == "layers") for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        if "router" not in name and node.dim() >= 2 and node.dtype == _F32:
+            return [walk(v, name, in_layers) for v in node]
+        if "router" not in name and node.dtype == _F32 and (in_layers or node.dim() >= 2):
             return node.to(compute_dtype)
         return node
 
@@ -170,15 +211,15 @@ def cast_params(params: Model, compute_dtype) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, norm: Callable):
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _mm("bsd,de->bse", x, p["wq"]).reshape(b, s, h, dh)
     k = _mm("bsd,de->bse", x, p["wk"]).reshape(b, s, kh, dh)
     v = _mm("bsd,de->bse", x, p["wv"]).reshape(b, s, kh, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = norm(q, p["q_norm"], cfg.norm_eps)
+        k = norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -194,7 +235,7 @@ def _position(q, k, cfg: ModelConfig, positions, mrope_positions):
 
 def _attn_seq(p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions, want_cache: bool):
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, norm_fn(flags))
     q, k = _position(q, k, cfg, positions, mrope_positions)
     impl = flags.attn_impl
     if impl == "auto":
@@ -218,9 +259,10 @@ def _quantize(x: torch.Tensor):
     return torch.round(xf / scale[..., None]).to(torch.int8), scale.to(torch.bfloat16)
 
 
-def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions):
+def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions,
+                 norm: Callable):
     b, s, _ = x.shape  # s == 1
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, norm)
     positions = torch.full((b, 1), cur_index, dtype=torch.long, device=x.device)
     q, k = _position(q, k, cfg, positions, mrope_positions)
     if "k_scale" in cache:  # int8 KV cache (per-token, per-head absmax)
@@ -239,30 +281,39 @@ def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_posi
     return _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
 
 
-def _mlp(pos: int, p, x, cfg: ModelConfig):
+def _mlp(pos: int, p, x, cfg: ModelConfig, norm: Callable):
     mk = cfg.mlp_kind_at(pos)
     if mk == "moe":
         raise NotImplementedError(MOE_TODO)
     if mk == "dense":
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_kind)
+        x = x + mlp_apply(p["mlp"], norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_kind)
     return x
 
 
 def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions,
                want_cache: bool):
-    if cfg.block_kinds[pos] != "attn":
-        raise NotImplementedError(MAMBA_TODO)
-    h, cache = _attn_seq(p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, flags,
-                         positions, mrope_positions, want_cache)
-    return _mlp(pos, p, x + h, cfg), cache
+    """One layer over the sequence: (x, its decode cache or None). A Mamba-2
+    layer's cache comes from ``mamba2_prefill``, which takes the final SSM
+    state from the layer's one SSD call (the reference's
+    ``_mamba_prefill_cache`` recomputes it)."""
+    norm = norm_fn(flags)
+    normed = norm(x, p["norm1"], cfg.norm_eps)
+    if cfg.block_kinds[pos] == "attn":
+        h, cache = _attn_seq(p["mixer"], normed, cfg, flags, positions, mrope_positions, want_cache)
+    else:
+        h, cache = mamba2_prefill(p["mixer"], normed, cfg, _ssd_fn(flags, x.shape[1]), norm)
+        cache = cache if want_cache else None
+    return _mlp(pos, p, x + h, cfg, norm), cache
 
 
-def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions):
-    if cfg.block_kinds[pos] != "attn":
-        raise NotImplementedError(MAMBA_TODO)
-    h = _attn_decode(p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cache, cur_index,
-                     mrope_positions)
-    return _mlp(pos, p, x + h, cfg)
+def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions,
+                  norm: Callable):
+    h = norm(x, p["norm1"], cfg.norm_eps)
+    if cfg.block_kinds[pos] == "attn":
+        h = _attn_decode(p["mixer"], h, cfg, cache, cur_index, mrope_positions, norm)
+    else:
+        h, _ = mamba2_decode(p["mixer"], h, cache, cfg, norm)
+    return _mlp(pos, p, x + h, cfg, norm)
 
 
 # ---------------------------------------------------------------------------
@@ -276,8 +327,8 @@ def _embed(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor], compute_dtype) -
     return x
 
 
-def _head(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+def _head(p, cfg: ModelConfig, x: torch.Tensor, norm: Callable = rms_norm) -> torch.Tensor:
+    x = norm(x, p["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings and "embed" in p:
         w = p["embed"].t().to(x.dtype)
     else:
@@ -319,7 +370,7 @@ def forward(
     p = cast_params(params, compute_dtype)
     x, caches = _sequence(p, cfg, batch, flags, compute_dtype, want_cache)
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    return _head(p, cfg, x), aux, caches
+    return _head(p, cfg, x, norm_fn(flags)), aux, caches
 
 
 def forward_hidden(
@@ -333,7 +384,8 @@ def forward_hidden(
     aux)."""
     p = cast_params(params, compute_dtype)
     x, _ = _sequence(p, cfg, batch, flags, compute_dtype, False)
-    return rms_norm(x, p["final_norm"], cfg.norm_eps), torch.zeros((), dtype=_F32, device=x.device)
+    hidden = norm_fn(flags)(x, p["final_norm"], cfg.norm_eps)
+    return hidden, torch.zeros((), dtype=_F32, device=x.device)
 
 
 def head_matrix(params: Model, cfg: ModelConfig, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -345,26 +397,29 @@ def head_matrix(params: Model, cfg: ModelConfig, compute_dtype=torch.bfloat16) -
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
                kv_quant: str = "none", device=None) -> List[dict]:
-    """Decode cache: one dict per layer. ``kv_quant='int8'`` stores KV as
-    int8 with a per-(token, head) absmax scale in bf16."""
-    if cfg.has_mamba():
-        raise NotImplementedError(MAMBA_TODO)
+    """Decode cache: one dict per layer. An attention layer holds its KV
+    ({"k", "v"} (B, cache_len, KH, Dh) in ``dtype``; ``kv_quant='int8'``
+    stores int8 with a per-(token, head) absmax scale in bf16); a Mamba-2
+    layer holds {"conv": (B, W-1, conv_dim) in ``dtype``, "ssm": (B, H, P,
+    N) f32}, whatever ``cache_len``."""
+    if kv_quant not in ("none", "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
     dev = resolve_device(device)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     caches = []
-    for _ in range(cfg.n_layers):
-        if kv_quant == "int8":
+    for i in range(cfg.n_layers):
+        if cfg.block_kinds[i % cfg.cycle_len] != "attn":
+            caches.append(mamba2_cache_init(cfg, batch, dtype, dev))
+        elif kv_quant == "int8":
             caches.append({
                 "k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
                 "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
             })
-        elif kv_quant == "none":
+        else:
             caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
                            "v": torch.zeros(shape, dtype=dtype, device=dev)})
-        else:
-            raise ValueError(f"unknown kv_quant {kv_quant!r}")
     return caches
 
 
@@ -379,11 +434,13 @@ def decode_step(
 ) -> Tuple[torch.Tensor, List[dict]]:
     """One new token against the cache at position ``cur_index``. Returns
     (logits (B, 1, V) f32, cache); the cache is updated in place and the
-    same list is returned. ``flags`` is accepted for the reference's
-    signature; decode attention is always the plain one."""
+    same list is returned. Of ``flags`` only ``norm_impl`` applies: decode
+    attention and the one-token SSD update are plain torch, as in the
+    reference."""
     p = cast_params(params, compute_dtype)
     x = _embed(p, cfg, batch, compute_dtype)
     mrope_positions = batch.get("mrope_positions")
+    norm = norm_fn(flags)
     for i, lp in enumerate(p["layers"]):
-        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions)
-    return _head(p, cfg, x), cache
+        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions, norm)
+    return _head(p, cfg, x, norm), cache

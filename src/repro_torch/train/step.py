@@ -10,18 +10,19 @@ from typing import Dict
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import Model, RunFlags, _head, _sequence, cast_params
+from ..models.model import Model, RunFlags, _head, _sequence, cast_params, norm_fn
 from ..models.model import decode_step as model_decode
 
 
 def make_prefill_step(cfg: ModelConfig, flags: RunFlags):
     def prefill_step(params: Model, batch: Dict[str, torch.Tensor]):
-        """(last-position logits (B, V) f32, per-layer KV cache). The head
-        runs on the last position only: it is row-wise, so those logits are
-        the full forward's."""
+        """(last-position logits (B, V) f32, per-layer cache: KV or the
+        Mamba-2 conv window and SSM state). The head runs on the last
+        position only: it is row-wise, so those logits are the full
+        forward's."""
         p = cast_params(params, torch.bfloat16)
         x, cache = _sequence(p, cfg, batch, flags, torch.bfloat16, True)
-        return _head(p, cfg, x[:, -1:])[:, -1], cache
+        return _head(p, cfg, x[:, -1:], norm_fn(flags))[:, -1], cache
 
     return prefill_step
 

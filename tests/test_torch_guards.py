@@ -13,7 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the gpu-marked tests run where there is no JAX
-JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py")
+JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
+                  "test_torch_gpu_rmsnorm.py")
 
 
 def port_sources(ext=".py"):
@@ -38,7 +39,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = port_sources() + [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "tests", f) for f in JAX_FREE_TESTS]
     assert len(files) > 40, files  # the scan sees the whole package
-    for module in ("models/model.py", "launch/serve.py", "kernels/flash_attention/ops.py",
+    for module in ("models/model.py", "models/mamba2.py", "launch/serve.py",
+                   "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
                    "configs/registry.py", "kernels/_build.py"):
         assert os.path.join(PORT, module) in files, module
     bad = [
@@ -52,14 +54,15 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_cuda_sources_are_the_kernels():
     names = sorted(os.path.basename(p) for p in port_sources(".cu"))
-    assert names == ["flash_attention.cu", "phase_sim.cu"], names
+    assert names == ["flash_attention.cu", "phase_sim.cu", "rmsnorm.cu", "ssd.cu"], names
 
 
 @pytest.mark.parametrize("cu", port_sources(".cu"), ids=os.path.basename)
 def test_cuda_source_has_only_float_constants(cu):
     """A double literal moves f32 arithmetic to double (the phase-sim retire
     test ``c_t <= phi * (1 + 1e-9)`` would then retire other tasks; the
-    flash kernel's masked scores would leave f32)."""
+    flash kernel's masked scores would leave f32; so would the SSD decay and
+    the RMSNorm statistics)."""
     with open(cu) as f:
         src = f.read()
     code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
@@ -72,7 +75,7 @@ def test_cuda_source_has_only_float_constants(cu):
     assert not re.search(r"__(expf|logf|fdividef|powf)\b", code)
 
 
-@pytest.mark.parametrize("name", ["phase_sim", "flash_attention"])
+@pytest.mark.parametrize("name", ["phase_sim", "flash_attention", "ssd", "rmsnorm"])
 def test_kernel_build_flags(name):
     import importlib
 

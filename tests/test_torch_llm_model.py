@@ -33,7 +33,7 @@ from repro_torch.models.convert import params_from_reference  # noqa: E402
 
 DENSE = ["qwen3-1.7b", "gemma-7b", "starcoder2-7b", "mistral-large-123b", "qwen2-vl-2b",
          "musicgen-large"]
-NOT_PORTED = ["jamba-v0.1-52b", "qwen3-moe-235b-a22b", "grok-1-314b", "mamba2-370m"]
+NOT_PORTED = ["jamba-v0.1-52b", "qwen3-moe-235b-a22b", "grok-1-314b"]  # MoE
 B, S = 2, 16
 FWD_TOL = 1e-4
 DECODE_TOL = 2e-3
@@ -164,7 +164,8 @@ def test_init_params_distributions_and_device():
     assert all(p.dtype == torch.bfloat16 for p in bf.parameters())
     cast = PM.cast_params(PM.init_params(cfg, seed=3, device="cpu"), torch.bfloat16)
     assert cast["embed"].dtype == torch.bfloat16 and cast["final_norm"].dtype == torch.float32
-    assert cast["layers"][0]["norm1"].dtype == torch.float32
+    # per-layer norm scales round as the reference's (stacked, hence 2-D) ones do
+    assert cast["layers"][0]["norm1"].dtype == torch.bfloat16
 
 
 def test_unknown_flags_raise():
