@@ -25,15 +25,21 @@ kernels. Phases, each printing one JSON line:
   8. flash_parity  flash kernel vs its plain version on the card: bf16 and
                    f32, Dh 16-256, MHA/GQA/MQA, causal and not, S 128-2048
                    and a ragged S, and serve's layout (B=4, H=16, KH=8,
-                   Dh=128); ≤ 2e-2 (bf16) / 2e-5 (f32), the reference's
-                   own bars
-  9. flash_timing  kernel, plain-version and SDPA times beside the bound at
-                   the Qwen3-1.7B prefill shape (B=4, S=512) and at S=2048,
-                   the kernel first held to its plain version on those inputs
+                   Dh=128); on the tensor-core route also Dh 64 and 256 at
+                   serve's layout, GQA 16:1, and q, k, v sliced from one
+                   fused projection through ops.flash_attention (bf16 and,
+                   on the CUDA-core route, f32); each case checks the route
+                   its dtype and Dh pick; <= 2e-2 (bf16) / 2e-5 (f32), the
+                   reference's own bars
+  9. flash_timing  kernel, ops.flash_attention on (B, S, H, Dh) inputs,
+                   plain-version and SDPA times beside the bound and its
+                   share at the Qwen3-1.7B prefill shape (B=4, S=512) and at
+                   S=2048, the kernel first held to its plain version
  10. serve     generate() on Qwen3-1.7B, 28 layers, seeded random bf16
                weights made on the card: 4 prompts of 512 tokens, 32 new
                tokens each, attn_impl="kernel"; the flash launch count is
-               zeroed just before and read just after (must be 28); prefill
+               zeroed just before and read just after (must be 28, all on
+               the tensor-core route); prefill
                timed as generate() with 0 new tokens; then the plain
                attention path on the same weights (2 layers: held to the
                reference's bar; 28 layers: reported)
@@ -45,14 +51,18 @@ kernels. Phases, each printing one JSON line:
                    chunk 64 and 128, and S=2048; y <= 5e-2 (bf16) / 1e-3
                    (f32), h <= 1e-3, the reference's own bars
  13. rmsnorm_parity  RMSNorm kernel vs its plain version: test_kernels.py's
-                   shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048)
-                   and a ragged (1000, 1024); f32, bf16, bf16 with an f32
+                   shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048),
+                   a ragged (1000, 1024), an odd (33, 1001), qk-norm's
+                   (32768, 128), (16, 8192), (4, 12288), and x one element
+                   past 16-byte alignment; f32, bf16, bf16 with an f32
                    weight; <= 1e-5 (f32) / 2e-2 (bf16)
  14. ssd_timing    kernel and plain-version times beside the bound at the
                    serving shape (bf16, chunk 64) and at S=2048, the kernel
                    first held to its plain version on those inputs
  15. rmsnorm_timing  kernel, plain-version and F.rms_norm times beside the
-                   bound at the serving shapes
+                   bound at the serving shapes, and the host microseconds of
+                   one ops.rmsnorm, rmsnorm_cuda and F.rms_norm call (at
+                   (4, 1024) also of the launch's parts)
  16. serve_mamba   generate() on Mamba2-370m, 48 layers, seeded random bf16
                weights made on the card: 4 prompts of 512 tokens, 32 new
                tokens each, ssd_impl="kernel", norm_impl="kernel"; the launch
@@ -65,7 +75,13 @@ kernels. Phases, each printing one JSON line:
  17. kernels   one line per ported kernel (launches, error, times, bound)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
-object. Any failed check ends the run with a non-zero exit code and no
+object.
+
+    python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT]
+
+times only the flash and RMSNorm kernels (this tree's, or another
+checkout's ``src/``) and prints one JSON line: run it for two trees in one
+call to compare them on one card. Any failed check ends the run with a non-zero exit code and no
 result line; so does a machine with no CUDA device. The script imports the
 port only (``src/repro_torch``), never JAX or the JAX package.
 """
@@ -309,6 +325,29 @@ def flash_check(q, k, v, causal, tol) -> tuple:
     return ab, rel, bool((d <= tol + tol * mag).all()) and got.dtype == q.dtype
 
 
+def fused_check(b, h, kh, s, dh, dtype, seed, causal, tol) -> tuple:
+    """``ops.flash_attention`` on q, k, v sliced from one fused (B, S,
+    H + 2 KH, Dh) projection (strided views the kernel reads in place),
+    against the plain version on the same views; as :func:`flash_check`."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fused = torch.randn(b, s, h + 2 * kh, dh, generator=g, device="cuda").to(dtype)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kh], fused[:, :, h + kh:]
+    got = flash_attention(q, k, v, causal, s, s)  # blocks: the whole sequence
+    torch.cuda.synchronize()
+    want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=causal).transpose(1, 2)
+    mag = want.double().abs()
+    d = (got.double() - want.double()).abs()
+    ab = d.max().item()
+    ok = bool((d <= tol + tol * mag).all()) and got.dtype == dtype and got.is_contiguous()
+    return ab, ab / max(mag.max().item(), 1e-30), ok
+
+
 def flash_bound(b, h, kh, s, dh, itemsize, causal=True) -> tuple:
     """Least time for one call: each input read once and the output written
     once, over HBM bandwidth; the causal products this input needs
@@ -361,6 +400,7 @@ def flash_phases(card: str, build_future) -> dict:
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.launch.serve import extend_cache, generate
     from repro_torch.models.model import Model, RunFlags, init_params
@@ -377,24 +417,40 @@ def flash_phases(card: str, build_future) -> dict:
               for heads, kh in FLASH_HEADS.items() for s in FLASH_SEQS]
     shapes += [(PREFILL["b"], PREFILL["h"], PREFILL["kh"], s, PREFILL["dh"], "serve")
                for s in PREFILL_SEQS]
+    # the tensor-core route's own cases (bf16): Dh 64 and 256 at serve's
+    # layout, GQA 16:1, and q, k, v sliced from one fused projection
+    # (B, S, H + 2 KH, Dh), read in place through ops.flash_attention
+    tc_shapes = [(2, 16, 8, s, dh, "serve") for dh in (64, 256) for s in PREFILL_SEQS]
+    tc_shapes += [(1, 32, 2, s, 128, "gqa16") for s in PREFILL_SEQS]
+    fused_shapes = [(2, 16, 8, s, dh, "fused") for dh in (64, 128) for s in PREFILL_SEQS]
     failures, n_cases, seed = [], 0, 0
-    for dtype in (torch.bfloat16, torch.float32):
+    routes = dict.fromkeys(FK.ROUTES, 0)
+    cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32) for shape in shapes]
+    cases += [(torch.bfloat16, shape) for shape in tc_shapes + fused_shapes]
+    cases += [(torch.float32, shape) for shape in fused_shapes]  # the CUDA-core route, strided
+    for dtype, (b, h, kh, s, dh, layout) in cases:
         dt = str(dtype).split(".")[-1]
-        for b, h, kh, s, dh, layout in shapes:
-            for causal in (True, False):
-                seed += 1
+        for causal in (True, False):
+            seed += 1
+            before = dict(FK.launches_by_route)
+            if layout == "fused":
+                ab, rel, ok = fused_check(b, h, kh, s, dh, dtype, seed, causal, FLASH_TOL[dt])
+            else:
                 q, k, v = flash_inputs(b, h, kh, s, dh, dtype, seed)
                 ab, rel, ok = flash_check(q, k, v, causal, FLASH_TOL[dt])
-                w = worst[dt]
-                w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
-                n_cases += 1
-                if not ok:
-                    failures.append({"dtype": dt, "b": b, "h": h, "kh": kh, "dh": dh,
-                                     "layout": layout, "s": s, "causal": causal, "max_abs_err": ab})
+            want_route = FK.route(dtype, dh)
+            took = [r for r in FK.ROUTES if FK.launches_by_route[r] != before[r]]
+            routes[want_route] += 1
+            w = worst[dt]
+            w["max_abs_err"], w["max_rel_err"] = max(w["max_abs_err"], ab), max(w["max_rel_err"], rel)
+            n_cases += 1
+            if not ok or took != [want_route]:
+                failures.append({"dtype": dt, "b": b, "h": h, "kh": kh, "dh": dh, "layout": layout,
+                                 "s": s, "causal": causal, "max_abs_err": ab, "route": took})
     if failures:
-        fail("flash_parity", "kernel disagrees with the plain version", failures=failures[:12],
-             n_failed=len(failures), n_cases=n_cases)
-    emit("flash_parity", ok=True, cases=n_cases, worst=worst, tol=FLASH_TOL,
+        fail("flash_parity", "kernel disagrees with the plain version or took the wrong route",
+             failures=failures[:12], n_failed=len(failures), n_cases=n_cases)
+    emit("flash_parity", ok=True, cases=n_cases, cases_by_route=routes, worst=worst, tol=FLASH_TOL,
          check="|kernel - plain| <= tol + tol*|plain| everywhere; "
                "max_rel_err = max|kernel - plain| / max|plain| per case",
          seconds=time.perf_counter() - t0)
@@ -412,12 +468,16 @@ def flash_phases(card: str, build_future) -> dict:
             fail("flash_timing", "kernel disagrees with the plain version on the timed inputs",
                  shape=shape, max_abs_err=ab, tol=FLASH_TOL["bfloat16"])
         ms = cuda_time_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50)
+        # what the model pays: the entry point on (B, S, H, Dh) activations
+        qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ops_ms = cuda_time_ms(lambda: flash_attention(qm, km, vm, causal=True), 50)
         plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, causal=True), 10)
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 50)
         bound_ms, bound_by, nbytes, nops = flash_bound(b, h, kh, s, dh, 2)
         timings[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        timings[s].update(ops_ms=ops_ms, bound_share=bound_ms / ms, route=FK.route(q.dtype, dh))
         emit("flash_timing", ok=True, shape=shape, dtype="bfloat16", causal=True, bytes=nbytes,
              ops=nops, max_abs_err=ab, max_rel_err=rel, card=card, **timings[s])
 
@@ -431,12 +491,13 @@ def flash_phases(card: str, build_future) -> dict:
     generate(model, cfg, prompt, 1, flags=kernel_flags)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FK.flash_attention_cuda.launches = 0
+    FK.reset_launches()
     t0 = time.perf_counter()
     tokens, last = generate(model, cfg, prompt, SERVE_NEW, flags=kernel_flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = FK.flash_attention_cuda.launches
+    by_route = dict(FK.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
 
     # the prefill and cache extension alone, through the same entry point
@@ -467,13 +528,14 @@ def flash_phases(card: str, build_future) -> dict:
         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall, prefill_ms=prefill_ms,
         prefill_ms_runs=walls, decode_ms_per_step=decode_ms, max_memory_allocated=peak,
-        flash_launches=launches, params_device=str(model.device),
+        flash_launches=launches, flash_launches_by_route=by_route, params_device=str(model.device),
         cache_device=str(cache_dev), card=card, profile=profile,
     )
     if model.device.type != "cuda" or cache_dev.type != "cuda":
         fail("serve", "the model or its cache is not on the card", **summary)
-    if launches != cfg.n_layers:
-        fail("serve", f"{launches} flash launches, want one per layer ({cfg.n_layers})", **summary)
+    if launches != cfg.n_layers or by_route["tensor_cores"] != cfg.n_layers:
+        fail("serve", f"{launches} flash launches ({by_route}), want one per layer "
+             f"({cfg.n_layers}), all on the tensor-core route", **summary)
     finite = all(bool(torch.isfinite(x).all()) for x in (last, first))
     valid = tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
@@ -507,6 +569,7 @@ def flash_phases(card: str, build_future) -> dict:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
         "launches": launches,
+        "launches_by_route": by_route,
         "max_abs_err": max(w["max_abs_err"] for w in worst.values()),
         "max_rel_err": max(w["max_rel_err"] for w in worst.values()),
         "ms": t["ms"],
@@ -535,8 +598,12 @@ SSD_CASES = [
 SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chunk 64
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
 # tests/test_kernels.py's shapes, serve_mamba's prefill and decode rows, a ragged count
+# an odd width, Qwen3's qk-norm rows (d = 128 over B*S*H rows), wide rows
+# (d = 8192, Mistral's 12288: a block per row)
 RMS_SHAPES = [(64, 128), (2, 32, 64), (256, 512), (2048, 1024), (2048, 2048), (4, 1024),
-              (4, 2048), (1000, 1024)]
+              (4, 2048), (1000, 1024), (33, 1001), (32768, 128), (16, 8192), (4, 12288)]
+RMS_MISALIGNED = ((2048, 1024), (33, 1001), (4, 12288))  # x one element past 16-byte alignment
+RMS_HOST_CALLS = 200  # calls per host-cost sample (well inside the launch queue)
 RMS_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"))  # x, w
 RMS_TIMED = ((2048, 1024), (2048, 2048), (4, 1024), (4, 2048))  # the headline first
 
@@ -590,6 +657,24 @@ def ssd_bound(b, s, h, p, n, q, x_item, bc_item) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def host_us(fn) -> float:
+    """Host microseconds per call of an asynchronous launch: the median of
+    5 runs of RMS_HOST_CALLS back-to-back calls, each started on an idle
+    stream and timed without waiting for the card (the queue never fills)."""
+    import torch
+
+    fn()
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RMS_HOST_CALLS):
+            fn()
+        samples.append((time.perf_counter() - t0) * 1e6 / RMS_HOST_CALLS)
+    torch.cuda.synchronize()
+    return sorted(samples)[2]
+
+
 def rms_bound(rows, d, x_item, w_item) -> tuple:
     """Least time for one call: x read once, w read once, the output written
     once, over HBM bandwidth; 4 f32 operations an element over the f32 peak."""
@@ -608,7 +693,9 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels._build import stream_handle
     from repro_torch.kernels.rmsnorm import kernel as NK
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd.ref import ssd_reference
@@ -645,10 +732,14 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     t0 = time.perf_counter()
     rms_worst = {dt: {"max_abs_err": 0.0, "max_rel_err": 0.0} for dt in RMS_TOL}
     failures, n_cases = [], 0
-    for shape in RMS_SHAPES:
+    for shape, misaligned in [(sh, False) for sh in RMS_SHAPES] + [(sh, True) for sh in RMS_MISALIGNED]:
         for xd, wd in RMS_DTYPES:
             g = torch.Generator(device="cuda").manual_seed(shape[-1] + len(shape))
-            x = torch.randn(shape, generator=g, device="cuda").to(dtypes[xd])
+            n = 1
+            for e in shape:
+                n *= e
+            buf = torch.randn(n + int(misaligned), generator=g, device="cuda").to(dtypes[xd])
+            x = buf[int(misaligned):].view(shape)  # misaligned: the element-load path
             w = (torch.randn(shape[-1], generator=g, device="cuda") * 0.1).to(dtypes[wd])
             got = NK.rmsnorm_cuda(x.reshape(-1, shape[-1]), w).reshape(shape)
             torch.cuda.synchronize()
@@ -661,7 +752,8 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
             wst["max_abs_err"], wst["max_rel_err"] = max(wst["max_abs_err"], ab), max(wst["max_rel_err"], rel)
             n_cases += 1
             if not (bool((d <= tol + tol * want.double().abs()).all()) and got.dtype == x.dtype):
-                failures.append(dict(shape=shape, dtype=xd, w_dtype=wd, max_abs_err=ab))
+                failures.append(dict(shape=shape, dtype=xd, w_dtype=wd, misaligned=misaligned,
+                                     max_abs_err=ab))
     if failures:
         fail("rmsnorm_parity", "kernel disagrees with the plain version", failures=failures,
              n_cases=n_cases)
@@ -705,6 +797,20 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
         bound_ms, bound_by, nbytes, nops = rms_bound(rows, d, 2, 2)
         rms_t[(rows, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                                 bound_by=bound_by)
+        rms_t[(rows, d)].update(
+            bound_share=bound_ms / ms,
+            host_us=host_us(lambda: rms_ops(x, w)),  # the model's entry point
+            host_us_kernel=host_us(lambda: NK.rmsnorm_cuda(x, w)),
+            host_us_library=host_us(lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6)))
+        if (rows, d) == RMS_TIMED[2]:  # where a decode call's host time goes
+            out = torch.empty_like(x)
+            lib, dev = NK._LIB.get(), x.get_device()
+            args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 1, rows, d, 1e-6, stream_handle(dev))
+            rms_t[(rows, d)]["host_us_parts"] = dict(
+                empty_like=host_us(lambda: torch.empty_like(x)),
+                current_stream=host_us(lambda: torch.cuda.current_stream(x.device).cuda_stream),
+                stream_handle=host_us(lambda: stream_handle(dev)),
+                ctypes_launch=host_us(lambda: lib.rmsnorm_launch(*args)))
         emit("rmsnorm_timing", ok=True, shape=[rows, d], dtype="bfloat16", w_dtype="bfloat16",
              bytes=nbytes, ops=nops, max_abs_err=dd.max().item(), card=card, **rms_t[(rows, d)])
 
@@ -814,12 +920,59 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     }]
 
 
-def main() -> int:
+def kernel_times(card: str) -> dict:
+    """The flash and RMSNorm kernels' device times at the timing phases'
+    shapes, through the entry points every version of the port has
+    (``flash_attention_cuda`` on contiguous (B, H, S, Dh) inputs,
+    ``ops.flash_attention`` on (B, S, H, Dh), ``rmsnorm_cuda``, and the host
+    cost of ``ops.rmsnorm``); for timing two trees on one card."""
     import torch
 
+    import repro_torch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm import kernel as NK
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm as rms_ops
+
+    FK.build()
+    NK.build()
+    out = {"src": os.path.relpath(os.path.dirname(os.path.dirname(repro_torch.__file__)), HERE),
+           "card": card, "flash": {}, "rmsnorm": {}}
+    for s in (PREFILL["s"], 2048):
+        b, h, kh, dh = PREFILL["b"], PREFILL["h"], PREFILL["kh"], PREFILL["dh"]
+        q, k, v = flash_inputs(b, h, kh, s, dh, torch.bfloat16, seed=s)
+        qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out["flash"][s] = dict(
+            ms=cuda_time_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50),
+            ops_ms=cuda_time_ms(lambda: flash_attention(qm, km, vm, causal=True), 50))
+    for rows, d in RMS_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(d, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        out["rmsnorm"][f"{rows}x{d}"] = dict(ms=cuda_time_ms(lambda: NK.rmsnorm_cuda(x, w), 200),
+                                             host_us=host_us(lambda: rms_ops(x, w)))
+    return out
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time the flash and RMSNorm kernels and print one JSON line")
+    ap.add_argument("--src", default=None,
+                    help="with --kernel-times: the root of another checkout whose src/ to time")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel_times:
+        if args.src:
+            sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
+        print(json.dumps({"kernel_times": kernel_times(smi_line())}), flush=True)
+        return 0
     from repro_torch.core import (
         Explorer, ExplorerConfig, HardwareDatabase, ar_complex, audio,
         calibrated_budget, distance, edge_detection, simulate, synthetic_family,

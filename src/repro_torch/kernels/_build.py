@@ -17,7 +17,18 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def stream_handle(device_index: int) -> int:
+    """The ``cudaStream_t`` of the current stream on ``device_index``, as an
+    int for a ``ctypes.c_void_p`` argument: PyTorch's raw handle, without
+    the Stream object ``torch.cuda.current_stream`` builds on every call
+    (``chip_smoke.py``'s rmsnorm_timing reports the host time of both). The
+    binding exists in PyTorch's CUDA builds, the only ones that launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def nvcc() -> str:
@@ -65,9 +76,12 @@ class Library:
         return lib
 
     def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                self._bind(lib)
-                self._lib = lib
-        return self._lib
+        lib = self._lib  # once loaded, no lock and no lookup: this runs on every launch
+        if lib is None:
+            with self._lock:
+                if self._lib is None:
+                    loaded = ctypes.CDLL(str(self.build()))
+                    self._bind(loaded)
+                    self._lib = loaded
+                lib = self._lib
+        return lib

@@ -1,10 +1,15 @@
 """Public wrapper of the flash-attention kernel, in the model layout
-(B, S, H, Dh) ⇄ the kernel's (B, H, S, Dh).
+(B, S, H, Dh).
 
 The device of the inputs picks the path, and nothing else does:
 
   * CUDA tensors launch the kernel (``kernel.flash_attention_cuda``) or
-    raise; a failed build or launch is never caught;
+    raise; a failed build or launch is never caught. The kernel reads q, k
+    and v in place through their strides (transposed views, no copies) and
+    writes a contiguous (B, S, H, Dh) output, so the model's
+    ``out.reshape(b, s, -1)`` is a view. Only an input whose strides the
+    kernel cannot read (a head dim that is not contiguous, or a stride that
+    is no multiple of 16 bytes, which no model path makes) is copied first;
   * CPU tensors run the plain version (``ref.attention_reference``);
   * any other device raises.
 
@@ -16,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, kernel_reads
 from .ref import attention_reference
 
 
@@ -35,10 +40,13 @@ def flash_attention(
         raise ValueError(f"blocks ({q_block}, {kv_block}) must divide the sequences ({sq}, {skv})")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads are not a multiple of {kh} KV heads")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.device.type == "cuda":
-        out = flash_attention_cuda(qt.contiguous(), kt.contiguous(), vt.contiguous(), causal=causal)
+        q, k, v = (x if kernel_reads(x) else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out = flash_attention_cuda(qt, kt, vt, causal=causal)
     elif q.device.type == "cpu":
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         out = attention_reference(qt, kt, vt, causal=causal)
     else:
         raise ValueError(f"flash_attention: no path for tensors on {q.device}")

@@ -84,3 +84,60 @@ def test_contract_and_device_checks():
     with pytest.raises(ValueError, match="CUDA"):
         K.flash_attention_cuda(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                                k.transpose(1, 2).contiguous())
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_strided_model_layout_views_match_contiguous(dtype, causal):
+    """q, k and v sliced from one fused (B, S, H + 2 KH, Dh) projection: the
+    entry point takes the non-contiguous views as they are (the CUDA kernel
+    reads them through their strides), gives what contiguous copies give,
+    and both match the interpret-mode Pallas kernel at the reference's bars."""
+    b, s, h, kh, dh = 2, 128, 8, 2, 64
+    rng = np.random.default_rng(5)
+    fused = rng.standard_normal((b, s, h + 2 * kh, dh)).astype(np.float32)
+    ft = torch.from_numpy(fused).to(TORCH_DTYPE[dtype])
+    q, k, v = ft[:, :, :h], ft[:, :, h:h + kh], ft[:, :, h + kh:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    assert all(K.kernel_reads(x) for x in (q, k, v))  # the kernel would take them in place
+    out = flash_attention(q, k, v, causal, 64, 64)
+    again = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal, 64, 64)
+    torch.testing.assert_close(out, again, atol=0, rtol=0)
+    fj = jnp.asarray(fused).astype(dtype)
+    want = ref_flash(fj[:, :, :h], fj[:, :, h:h + kh], fj[:, :, h + kh:], causal, 64, 64, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol(dtype), rtol=tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 256, "tensor_cores"), (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 32, "cuda_cores"), (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"), (torch.float32, 256, "cuda_cores"),
+])
+def test_route_is_fixed_by_dtype_and_head_dim(dtype, dh, want):
+    """The dispatch rule: bf16 at Dh 64, 128 and 256 runs on the tensor
+    cores, f32 (whose 2e-5 bar no bf16 or TF32 product meets) and the
+    reduced configs' bf16 Dh 16 and 32 on the CUDA cores. A pure function
+    of the two: the same answer every call, whatever else the call holds."""
+    assert K.route(dtype, dh) == want
+    assert K.route(dtype, dh) == K.route(dtype, dh)
+    assert set(K.launches_by_route) == set(K.ROUTES) == {"tensor_cores", "cuda_cores"}
+    assert set(K.TC_HEAD_DIMS) <= set(K.HEAD_DIMS)
+
+
+def test_kernel_reads_strides_as_tma_takes_them():
+    """Which layouts the kernel reads in place (the head dim contiguous, the
+    base and every other stride 16-byte aligned), and the (batch, row,
+    head) strides it is handed for a transposed model-layout view."""
+    x = torch.zeros(2, 40, 6, 64, dtype=torch.bfloat16)  # (B, S, H, Dh)
+    assert K.kernel_reads(x)
+    assert K.kernel_strides(x.transpose(1, 2)) == (40 * 6 * 64, 6 * 64, 64)
+    assert K.kernel_reads(torch.zeros(2, 40, 12, 64, dtype=torch.bfloat16)[:, :, 6:])
+    assert not K.kernel_reads(x.transpose(2, 3))  # head dim not contiguous
+    assert not K.kernel_reads(torch.zeros(2, 40, 6, 66, dtype=torch.bfloat16)[..., :64])  # 132 B rows
+    assert not K.kernel_reads(torch.zeros(2 * 40 * 6 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 40, 6, 64))
+    one = torch.zeros(1, 40, 1, 64, dtype=torch.float32)  # size-1 dims: any stride serves
+    assert K.kernel_strides(one.transpose(1, 2)) == (4, 64, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.kernel_strides(torch.zeros(2, 40, 6, 66)[..., :64])

@@ -91,3 +91,17 @@ def test_kernel_build_flags(name):
     assert _build.BUILD_DIR.parent.parent == type(_build.BUILD_DIR)(ROOT)
     assert kernel._LIB.source == kernel.SOURCE and kernel.SOURCE.exists()
     assert kernel._LIB.flags == tuple(kernel.NVCC_FLAGS)
+
+
+def test_flash_source_is_built_on_hopper_primitives():
+    """The flash kernel's tensor-core route is wgmma products fed by TMA
+    copies under mbarriers, with the producer/consumer register split; a
+    rewrite that drops any of them is a different kernel."""
+    with open(os.path.join(PORT, "kernels", "flash_attention", "csrc", "flash_attention.cu")) as f:
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
+                   "mbarrier.arrive.expect_tx", "setmaxnreg.dec", "setmaxnreg.inc", "wgmma.fence",
+                   "cuTensorMapEncodeTiled", "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert needle in code, needle
+    assert "extern \"C\" int flash_attention_tc_launch" in code
+    assert "extern \"C\" int flash_attention_launch" in code

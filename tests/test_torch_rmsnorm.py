@@ -71,3 +71,32 @@ def test_contract_and_device_checks():
         K.rmsnorm_cuda(x, w)
     with pytest.raises(ValueError, match="rows, d"):
         K.rmsnorm_cuda(x, torch.zeros(8))
+
+
+@pytest.mark.parametrize("shape", [(7, 1001), (1000, 128), (3, 4097)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_odd_and_misaligned_rows_match_interpret_kernel(shape, dtype):
+    """Widths no 16-byte vector divides, qk-norm's d = 128, the warp/block
+    edge past 4096, and x one element past an aligned base (the CUDA
+    kernel's element-load path): the entry point against the interpret-mode
+    Pallas kernel at the reference's bars."""
+    (xj, wj), (xt, wt) = inputs(shape, dtype, seed=3)
+    buf = torch.empty(xt.numel() + 1, dtype=xt.dtype)
+    buf[1:] = xt.reshape(-1)
+    x_off = buf[1:].view(shape)
+    assert x_off.data_ptr() % 16 != 0
+    out = rmsnorm(x_off, wt)
+    want = ref_rmsnorm(xj, wj, row_block=shape[0], interpret=True)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol(dtype), rtol=tol(dtype))
+
+
+def test_width_limit():
+    """The widest row the CUDA kernel takes (16 vectors of 16 bytes for each
+    of a block's 512 threads) covers every config's norm, Mistral's 12,288
+    included."""
+    assert K.max_width(torch.bfloat16) == 65536 and K.max_width(torch.float32) == 32768
+    from repro_torch.configs.registry import arch_names, get_config
+
+    widest = max(get_config(n).d_model for n in arch_names())
+    assert widest <= K.max_width(torch.float32)
