@@ -13,8 +13,11 @@ kernels. Phases, each printing one JSON line:
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
   3. parity    kernel vs its plain PyTorch version on the card, every output
-               column, ≤ 1e-5 relative (audio, ar_complex and a > 32-task
-               synthetic graph; 1–3 NoCs; B ∈ {1, 4, 256, 4096})
+               column, ≤ 1e-5 relative, codes, phase counts and argmaxes
+               exact (audio, ar_complex and a > 32-task synthetic graph at
+               1–3 NoCs; synthetic graphs of 1, 28, 31, 32, 33, 64, 257 and
+               1024 tasks at 1, 2 and 8 NoCs; B ∈ {1, 4, 256, 4096}, fewer
+               at 257 and 1024 tasks)
   4. timing    kernel and plain-version times (CUDA events) beside the bound
   5. main_path Explorer.run() on ar_complex, farsi, seed 1, 500 iterations;
                the kernel's launch count is zeroed just before and read just
@@ -45,10 +48,16 @@ kernels. Phases, each printing one JSON line:
                reference's bar; 28 layers: reported)
  11. ssd_build, rmsnorm_build   nvcc builds of the SSD and RMSNorm kernels
                (started in parallel with the other two builds)
- 12. ssd_parity    SSD kernel vs its plain version on the card, y and the
-                   final state: tests/test_kernels.py's SSD_CASES, the serving
-                   shape (B=4, S=512, H=32, P=64, N=128) in bf16 and f32 at
-                   chunk 64 and 128, and S=2048; y <= 5e-2 (bf16) / 1e-3
+ 12. ssd_parity    one wgmma tile of each tensor-core product against
+                   torch.matmul first; then the SSD kernel vs its plain
+                   version on the card, y and the final state:
+                   tests/test_kernels.py's SSD_CASES, the serving shape (B=4,
+                   S=512, H=32, P=64, N=128) in bf16 and f32 at chunk 64 and
+                   128, and S=2048 (contiguous, through ssd_cuda); and
+                   ops.ssd on x, B and C sliced from one projection at chunk,
+                   P and N in {64, 128}, S from one chunk to 2048, bf16 and
+                   f32; each case reports the route it took and fails on
+                   another than kernel.route names; y <= 5e-2 (bf16) / 1e-3
                    (f32), h <= 1e-3, the reference's own bars
  13. rmsnorm_parity  RMSNorm kernel vs its plain version: test_kernels.py's
                    shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048),
@@ -56,9 +65,11 @@ kernels. Phases, each printing one JSON line:
                    (32768, 128), (16, 8192), (4, 12288), and x one element
                    past 16-byte alignment; f32, bf16, bf16 with an f32
                    weight; <= 1e-5 (f32) / 2e-2 (bf16)
- 14. ssd_timing    kernel and plain-version times beside the bound at the
-                   serving shape (bf16, chunk 64) and at S=2048, the kernel
-                   first held to its plain version on those inputs
+ 14. ssd_timing    kernel (ssd_cuda), ops.ssd and plain-version times beside
+                   the bound at the serving shape (bf16, chunk 64) and at
+                   S=2048, on the model's layout (x, B, C slices of one
+                   projection), the kernel first held to its plain version
+                   on those inputs
  15. rmsnorm_timing  kernel, plain-version and F.rms_norm times beside the
                    bound at the serving shapes, and the host microseconds of
                    one ops.rmsnorm, rmsnorm_cuda and F.rms_norm call (at
@@ -67,21 +78,26 @@ kernels. Phases, each printing one JSON line:
                weights made on the card: 4 prompts of 512 tokens, 32 new
                tokens each, ssd_impl="kernel", norm_impl="kernel"; the launch
                counts are zeroed just before and read just after (must be
-               48 SSD, one per layer in the prefill, and 97 x 33 = 3,201
+               48 SSD, one per layer in the prefill, all on the tensor-core
+               route, and 97 x 33 = 3,201
                RMSNorm: norm1 and the gated norm of each layer plus the final
                norm, in the prefill and in each of the 32 decode calls);
                timed as serve is; then the plain path on the same weights (2
                layers: held to the reference's bar; 48 layers: reported)
- 17. kernels   one line per ported kernel (launches, error, times, bound)
+ 17. kernels   one line per ported kernel (launches, error, times, bound;
+               flash and SSD also their launches per route)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object.
 
-    python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT]
+    python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT] [--outputs FILE]
 
-times only the flash and RMSNorm kernels (this tree's, or another
-checkout's ``src/``) and prints one JSON line: run it for two trees in one
-call to compare them on one card. Any failed check ends the run with a non-zero exit code and no
+times only the four kernels (this tree's, or another checkout's ``src/``):
+phase-sim at B = 4, 256 and 4096, flash and SSD at their serving shapes and
+S=2048, RMSNorm at the serving rows; and prints one JSON line: run it for
+two trees in one call to compare them on one card. ``--outputs FILE``
+saves the phase-sim kernel's outputs on fixed inputs to FILE, or, where
+FILE exists, counts the outputs that differ from it bit for bit. Any failed check ends the run with a non-zero exit code and no
 result line; so does a machine with no CUDA device. The script imports the
 port only (``src/repro_torch``), never JAX or the JAX package.
 """
@@ -108,6 +124,14 @@ CHECK_KEYS = (
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PARITY_BATCHES = (1, 4, 256, 4096)
+# outputs held bit for bit: the codes, phase counts, argmaxes and done flag
+EXACT_KEYS = ("bneck_code", "n_phases", "all_done", "top_bneck_pe", "top_bneck_mem")
+# synthetic graphs (sized_scenario) around the one-warp path's edge (31, 32,
+# 33 tasks), whole and ragged words, up to the largest block; the plain
+# version holds (B, T, T) tensors, so the batch shrinks as T grows
+TASK_CASES = [(t, n, b) for t in (1, 28, 31, 32, 33, 64) for n in (1, 2, 8) for b in PARITY_BATCHES]
+TASK_CASES += [(257, n, b) for n in (1, 2, 8) for b in (1, 4, 256)]
+TASK_CASES += [(1024, n, b) for n in (1, 2, 8) for b in (1, 4)]
 TIMING_BATCHES = (4, 256, 4096)
 DISTINCT = 256  # distinct designs per parity population (tiled up to B)
 GOLDEN_CELLS = ("audio.farsi.s7.it150", "ar_complex.farsi.s3.it120")
@@ -144,7 +168,7 @@ def chain_designs(g, n_noc: int, count: int, seed: int):
     for _ in range(count):
         d = Design.base(g)
         noc0 = d.noc_chain[0]
-        for _ in range(rng.randint(2, 4)):
+        for _ in range(rng.randint(2, 4) + 2 * max(0, n_noc - 3)):  # deep chains need blocks to split
             if rng.random() < 0.5:
                 t = rng.choice(tasks)
                 b = d.add_block(make_accelerator(t, rng.choice((100, 400))),
@@ -154,9 +178,12 @@ def chain_designs(g, n_noc: int, count: int, seed: int):
                 d.add_block(make_mem(rng.choice(("dram", "sram")),
                                      rng.choice((100, 800)), 32),
                             attach_to=noc0)
-        while len(d.noc_chain) < n_noc:
-            if not apply_fork(d, g, rng.choice(d.noc_chain)):
-                raise RuntimeError("NoC fork refused while building a chain design")
+        for _ in range(100 * n_noc):  # a NoC with fewer than 2 blocks refuses: pick another
+            if len(d.noc_chain) == n_noc:
+                break
+            apply_fork(d, g, rng.choice(d.noc_chain))
+        if len(d.noc_chain) != n_noc:
+            raise RuntimeError(f"no {n_noc}-NoC chain from NoC forks on this design")
         pes, mems = d.pes(), d.mems()
         for t in tasks:
             d.task_pe[t] = rng.choice(pes)
@@ -188,8 +215,26 @@ def population(g, budget, n_noc: int, b: int, seed: int, db, slots: int = 0):
     return enc, rows
 
 
+def sized_scenario(t: int, seed: int, db):
+    """A workload of exactly ``t`` tasks and its calibrated budget, from the
+    repo's own generator of AR-like graphs (``synthetic_family``: chains,
+    fan-outs and merges); ``t = 1`` is its first task alone."""
+    from repro_torch.core import synthetic_family
+    from repro_torch.core.tdg import TaskGraph
+    from repro_torch.core.workloads import synthetic_budget
+
+    sc = synthetic_family(seed, 1, db, min_tasks=max(t, 2), max_tasks=max(t, 2))[0]
+    if t > 1:
+        return sc.tdg, sc.budget
+    g = TaskGraph(sc.tdg.name)
+    g.add_task(next(iter(sc.tdg.tasks.values())))
+    return g, synthetic_budget(g, db)
+
+
 def compare(want, got):
-    """(max relative error, max absolute error, worst key, dtype problems)."""
+    """(max relative error, max absolute error, worst key, problems): the
+    problems name outputs of the wrong dtype and integer outputs (codes,
+    phase counts, argmaxes, the done flag) that are not exactly equal."""
     import torch
 
     worst_rel, worst_abs, worst_key = 0.0, 0.0, ""
@@ -206,8 +251,8 @@ def compare(want, got):
         if rel > worst_rel:
             worst_rel, worst_key = rel, key
         worst_abs = max(worst_abs, ab)
-    bad = [k for k, dt in (("bneck_code", torch.int32), ("n_phases", torch.int32),
-                           ("all_done", torch.bool)) if got[k].dtype != dt]
+    bad = [k for k in EXACT_KEYS if got[k].dtype != (torch.bool if k == "all_done" else torch.int32)]
+    bad += [f"{k} differs" for k in EXACT_KEYS if k not in bad and not torch.equal(got[k], want[k])]
     return worst_rel, worst_abs, worst_key, bad
 
 
@@ -247,11 +292,14 @@ def wall_ms(fn, reps: int) -> float:
 def bound(rows, enc, n_phases) -> tuple:
     """Least time the card could take for one launch on these inputs: the
     larger of bytes (each input read once, each output written once) over
-    HBM bandwidth and f32 operations over the f32 peak. Operations follow
-    the kernel's loops with this run's phase counts: per phase and candidate
-    T² for the ready set, 4·T² for the PE/MEM shares, 2·T² per NoC for the
-    link loads, ~30·T elementwise; after the loop T·(S_pe + 2·S_mem) for the
-    slot sums and ~50·T for the rollup."""
+    HBM bandwidth and f32 operations over the f32 peak. The count is the
+    function's work as the first design's task-long loops do it, with this
+    run's phase counts, and stays so (the bitmask design skips most of those
+    iterations, but a bound that shrank with each redesign would measure
+    nothing): per phase and candidate T² for the ready set, 4·T² for the
+    PE/MEM shares, 2·T² per NoC for the link loads, ~30·T elementwise; after
+    the loop T·(S_pe + 2·S_mem) for the slot sums and ~50·T for the rollup;
+    the parent mask as T² bytes."""
     from repro_torch.kernels.phase_sim.kernel import out_layout
 
     b, t = rows["task_pe"].shape
@@ -595,6 +643,15 @@ SSD_CASES = [
 ] + [(4, 512, 32, 64, 128, q, dt, dt) for dt in ("bfloat16", "float32") for q in (64, 128)] + [
     (4, 2048, 32, 64, 128, 64, "bfloat16", "bfloat16"),
 ]
+# (B, S, H, P, N, chunk, dtype) through ops.ssd on x, B and C sliced from one
+# projection, as the model passes them: bf16 takes the tensor-core route at
+# every chunk, P and N in {64, 128} and S from one chunk to 2048, reading the
+# slices in place; f32 the CUDA-core route
+SSD_ROUTE_CASES = [(2 if s < 2048 else 1, s, 4 if s < 2048 else 2, p, n, q, dt)
+                   for dt in ("bfloat16", "float32") for q in (64, 128) for p in (64, 128)
+                   for n in (64, 128) for s in sorted({q, 512, 2048})
+                   if dt == "bfloat16" or (q, p, n) != (128, 128, 128)]  # 276 KB: beyond the CUDA cores' kernel
+SSD_TILE_TOL = 1e-4  # one wgmma tile vs torch.matmul, over the tile's largest |value|
 SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chunk 64
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
 # tests/test_kernels.py's shapes, serve_mamba's prefill and decode rows, a ragged count
@@ -623,26 +680,47 @@ def ssd_inputs(b, s, h, p, n, dtype, bc_dtype, seed):
     return x, dt, a, bm, cm
 
 
-def ssd_check(args, chunk, y_tol) -> dict:
-    """The kernel's wrapper against its plain version on the same inputs:
-    worst abs errors of y and h, y's abs error over max |plain y|, and
-    whether every element is within tol + tol*|plain| in the right dtypes."""
+def ssd_model_inputs(b, s, h, p, n, seed, dtype=None):
+    """x, dt, a, B, C as Mamba-2's prefill passes them: x, B and C views of
+    one (B, S, H*P + 2N) projection (strided, not copied; bf16 unless
+    ``dtype`` says otherwise), dt (B, S, H) f32 = softplus(normal),
+    a = -exp(normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=g, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, s, h, generator=g, device="cuda"))
+    a = -torch.exp(torch.randn(h, generator=g, device="cuda"))
+    return xbc[..., :h * p].view(b, s, h, p), dt, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+
+def ssd_check(args, chunk, y_tol, fn=None) -> dict:
+    """A kernel entry point (``fn``, by default ``ssd_cuda``) against the
+    plain version on the same inputs: worst abs errors of y and h, y's abs
+    error over max |plain y|, the route the call took, and whether every
+    element is within tol + tol*|plain| in the right dtypes on the route
+    ``kernel.route`` names."""
     import torch
 
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd.ref import ssd_reference
 
-    y, h = SK.ssd_cuda(*args, chunk)
+    before = dict(SK.launches_by_route)
+    y, h = (fn or SK.ssd_cuda)(*args, chunk)
     torch.cuda.synchronize()
+    took = [r for r in SK.ROUTES if SK.launches_by_route[r] != before[r]]
+    want_route = SK.route(args[0].dtype, args[3].dtype, chunk, args[0].shape[-1], args[3].shape[-1])
     y_ref, h_ref = ssd_reference(*args, chunk=chunk)
     dy = (y.double() - y_ref.double()).abs()
     dh = (h.double() - h_ref.double()).abs()
     ok = bool((dy <= y_tol + y_tol * y_ref.double().abs()).all()) and bool(
         (dh <= SSD_H_TOL + SSD_H_TOL * h_ref.double().abs()).all())
-    ok = ok and y.dtype == args[0].dtype and h.dtype == torch.float32
+    ok = ok and y.dtype == args[0].dtype and h.dtype == torch.float32 and took == [want_route]
     y_abs = dy.max().item()
     return dict(y_abs=y_abs, y_rel=y_abs / max(y_ref.double().abs().max().item(), 1e-30),
-                h_abs=dh.max().item(), ok=ok)
+                h_abs=dh.max().item(), route=took[0] if len(took) == 1 else took, ok=ok)
 
 
 def ssd_bound(b, s, h, p, n, q, x_item, bc_item) -> tuple:
@@ -698,6 +776,7 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     from repro_torch.kernels.rmsnorm.ops import rmsnorm as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ops import ssd as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_reference
     from repro_torch.launch.serve import extend_cache, generate
     from repro_torch.models.model import Model, RunFlags, init_params
@@ -709,23 +788,46 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
 
     # ---- ssd_parity ---------------------------------------------------------------
     t0 = time.perf_counter()
+    # the tensor-core route's four products, one wgmma tile each, against
+    # torch.matmul first (swizzle, descriptors, fragments, the hi/lo split)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tc_c, tc_b = (torch.randn(64, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    tc_x = torch.randn(64, 64, generator=g, device="cuda").to(torch.bfloat16)
+    tc_h = torch.randn(64, 128, generator=g, device="cuda")
+    got = SK.wgmma_tile(tc_c, tc_b, tc_x, tc_h)
+    torch.cuda.synchronize()
+    cf, bf, xf = tc_c.float(), tc_b.float(), tc_x.float()
+    tile_err = {name: ((o - w).abs().max() / w.abs().max()).item() for name, o, w in zip(
+        ("c_bT", "c_hT", "s_x", "xT_b"), got, (cf @ bf.T, cf @ tc_h.T, got[0] @ xf, xf.T @ bf))}
+    if not max(tile_err.values()) <= SSD_TILE_TOL:
+        fail("ssd_parity", "a wgmma tile disagrees with torch.matmul", tile_err=tile_err, tol=SSD_TILE_TOL)
     ssd_worst = {"y_abs": 0.0, "y_rel": 0.0, "h_abs": 0.0}
     cases, failures = [], []
-    for i, (b, s, h, p, n, q, xd, bcd) in enumerate(SSD_CASES):
-        args = ssd_inputs(b, s, h, p, n, dtypes[xd], dtypes[bcd], seed=100 + i)
-        r = ssd_check(args, q, SSD_Y_TOL[xd])
-        case = dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=bcd, **r)
+
+    def ssd_cases():
+        for i, (b, s, h, p, n, q, xd, bcd) in enumerate(SSD_CASES):  # ssd_cuda, contiguous
+            yield (dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=bcd, layout="contiguous"),
+                   ssd_inputs(b, s, h, p, n, dtypes[xd], dtypes[bcd], seed=100 + i), q, None)
+        for i, (b, s, h, p, n, q, xd) in enumerate(SSD_ROUTE_CASES):  # ops.ssd, the model's slices
+            yield (dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=xd, layout="model"),
+                   ssd_model_inputs(b, s, h, p, n, seed=200 + i, dtype=dtypes[xd]), q, ssd_ops)
+
+    for case, args, q, fn in ssd_cases():
+        r = ssd_check(args, q, SSD_Y_TOL[case["dtype"]], fn)
+        case.update(r)
         cases.append(case)
         for key in ssd_worst:
             ssd_worst[key] = max(ssd_worst[key], r[key])
         if not r["ok"]:
             failures.append(case)
     if failures:
-        fail("ssd_parity", "kernel disagrees with the plain version", failures=failures,
-             n_cases=len(cases))
-    emit("ssd_parity", ok=True, cases=cases, worst=ssd_worst,
-         tol={"y": SSD_Y_TOL, "h": SSD_H_TOL},
-         check="|kernel - plain| <= tol + tol*|plain| everywhere, for y and h_final",
+        fail("ssd_parity", "kernel disagrees with the plain version or took the wrong route",
+             failures=failures, n_cases=len(cases))
+    emit("ssd_parity", ok=True, cases=cases, worst=ssd_worst, tile_err=tile_err,
+         cases_by_route={r: sum(c["route"] == r for c in cases) for r in SK.ROUTES},
+         tol={"y": SSD_Y_TOL, "h": SSD_H_TOL, "tile": SSD_TILE_TOL},
+         check="|kernel - plain| <= tol + tol*|plain| everywhere, for y and h_final, on the "
+               "route kernel.route names",
          seconds=time.perf_counter() - t0)
 
     # ---- rmsnorm_parity -------------------------------------------------------------
@@ -764,7 +866,7 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     ssd_t = {}
     for s in (SSD_TIMED[1], 2048):
         b, _, h, p, n, q = SSD_TIMED
-        args = ssd_inputs(b, s, h, p, n, torch.bfloat16, torch.bfloat16, seed=s)
+        args = ssd_model_inputs(b, s, h, p, n, seed=s)  # x, B, C: the model's slices
         r = ssd_check(args, q, SSD_Y_TOL["bfloat16"])
         if not r["ok"]:
             fail("ssd_timing", "kernel disagrees with the plain version on the timed inputs",
@@ -772,11 +874,13 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
         for key in ssd_worst:
             ssd_worst[key] = max(ssd_worst[key], r[key])
         ms = cuda_time_ms(lambda: SK.ssd_cuda(*args, q), 50)
+        ops_ms = cuda_time_ms(lambda: ssd_ops(*args, chunk=q), 50)  # what the model calls
         plain_ms = cuda_time_ms(lambda: ssd_reference(*args, chunk=q), 10)
         bound_ms, bound_by, nbytes, nops = ssd_bound(b, s, h, p, n, q, 2, 2)
         ssd_t[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        ssd_t[s].update(ops_ms=ops_ms, bound_share=bound_ms / ms, ssd_route=r["route"])
         emit("ssd_timing", ok=True, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q), dtype="bfloat16",
-             bytes=nbytes, ops=nops, check=r, card=card, **ssd_t[s])
+             layout="model", bytes=nbytes, ops=nops, check=r, card=card, **ssd_t[s])
 
     # ---- rmsnorm_timing -----------------------------------------------------------------
     rms_t = {}
@@ -824,12 +928,14 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     generate(model, cfg, prompt, 1, flags=kernel_flags)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    SK.ssd_cuda.launches = NK.rmsnorm_cuda.launches = 0
+    SK.reset_launches()
+    NK.rmsnorm_cuda.launches = 0
     t0 = time.perf_counter()
     tokens, last = generate(model, cfg, prompt, SERVE_NEW, flags=kernel_flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ssd_launches, rms_launches = SK.ssd_cuda.launches, NK.rmsnorm_cuda.launches
+    ssd_by_route = dict(SK.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
 
     walls = []
@@ -860,7 +966,7 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall, prefill_ms=prefill_ms,
         prefill_ms_runs=walls, decode_ms_per_step=decode_ms, max_memory_allocated=peak,
-        ssd_launches=ssd_launches, rmsnorm_launches=rms_launches,
+        ssd_launches=ssd_launches, ssd_launches_by_route=ssd_by_route, rmsnorm_launches=rms_launches,
         want_launches={"ssd": cfg.n_layers, "rmsnorm": want_rms},
         params_device=str(model.device), cache_devices=cache_devices, card=card, profile=profile,
     )
@@ -869,6 +975,8 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     if ssd_launches != cfg.n_layers or rms_launches != want_rms:
         fail("serve_mamba", "kernel launches differ from one SSD per layer and "
              "2 x layers + 1 norms per call", **summary)
+    if ssd_by_route["tensor_cores"] != cfg.n_layers:
+        fail("serve_mamba", "SSD launches off the tensor-core route", **summary)
     finite = all(bool(torch.isfinite(x).all()) for x in (last, first))
     valid = tokens.shape == (SERVE_BATCH, SERVE_NEW) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all())
@@ -904,6 +1012,7 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:27",
         "launches": ssd_launches,
+        "launches_by_route": ssd_by_route,
         "max_abs_err": ssd_worst["y_abs"],
         "max_rel_err": ssd_worst["y_rel"],
         "h_max_abs_err": ssd_worst["h_abs"],
@@ -920,24 +1029,98 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     }]
 
 
-def kernel_times(card: str) -> dict:
-    """The flash and RMSNorm kernels' device times at the timing phases'
-    shapes, through the entry points every version of the port has
-    (``flash_attention_cuda`` on contiguous (B, H, S, Dh) inputs,
-    ``ops.flash_attention`` on (B, S, H, Dh), ``rmsnorm_cuda``, and the host
-    cost of ``ops.rmsnorm``); for timing two trees on one card."""
+PHASE_OUTPUT_CASES = [("ar_complex", n, b) for n in (1, 2, 3) for b in TIMING_BATCHES] + [
+    (t, n, b) for t in (1, 31, 33, 100) for n in (1, 2, 8) for b in (4, 4096)] + [
+    (t, n, 4) for t in (257, 1024) for n in (1, 2, 8)]
+
+
+def phase_sim_outputs(db, bud) -> dict:
+    """The phase-sim kernel's packed output rows on fixed inputs
+    (ar_complex at the timing shapes, synthetic graphs of 1-1024 tasks), as
+    int32 bits: what two versions of the kernel are compared on bit for bit.
+    Uses only entry points every version of the port has."""
+    import torch
+
+    from repro_torch.core import ar_complex
+    from repro_torch.core.backend import _bucket
+    from repro_torch.core.phase_sim_torch import rows_to
+    from repro_torch.kernels.phase_sim import kernel as K
+    from repro_torch.kernels.phase_sim import ops
+
+    outs = {}
+    for name, n_noc, b in PHASE_OUTPUT_CASES:
+        if name == "ar_complex":
+            g = ar_complex()
+            enc, rows = population(g, bud, n_noc, b, seed=7 + b, db=db, slots=_bucket(len(g.tasks)))
+        else:
+            g, gb = sized_scenario(name, seed=name, db=db)
+            enc, rows = population(g, gb, n_noc, b, seed=10 * n_noc + b, db=db)
+        dev = rows_to(rows, "cuda")
+        lay = K.out_layout(len(enc.names), rows["pe_peak"].shape[1], rows["mem_bw"].shape[1],
+                           n_noc, len(enc.wl_names))
+        out = torch.empty((b, lay["width"]), dtype=torch.float32, device="cuda")
+        K.phase_sim_cuda(enc.on("cuda"), dev, ops.pack_nocs(dev), out)
+        outs[f"{name}/{n_noc}/{b}"] = out.view(torch.int32).cpu()
+    return outs
+
+
+def kernel_times(card: str, outputs_path=None) -> dict:
+    """The phase-sim, flash, SSD and RMSNorm kernels' device times at the
+    timing phases' shapes, through the entry points every version of the
+    port has (``phase_sim_cuda``; ``flash_attention_cuda`` on contiguous
+    (B, H, S, Dh) inputs and ``ops.flash_attention`` on (B, S, H, Dh);
+    ``ssd_cuda`` on contiguous inputs and ``ops.ssd`` on the model's slices
+    of one projection; ``rmsnorm_cuda`` and the host cost of
+    ``ops.rmsnorm``); for timing two trees on one card. With
+    ``outputs_path``: saves the phase-sim outputs of :func:`phase_sim_outputs`
+    there, or, where the file exists, counts the outputs that differ from
+    it bit for bit."""
     import torch
 
     import repro_torch
+    from repro_torch.core import HardwareDatabase, ar_complex, calibrated_budget
+    from repro_torch.core.backend import _bucket
+    from repro_torch.core.phase_sim_torch import rows_to
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.phase_sim import kernel as K
+    from repro_torch.kernels.phase_sim import ops as phase_ops
     from repro_torch.kernels.rmsnorm import kernel as NK
     from repro_torch.kernels.rmsnorm.ops import rmsnorm as rms_ops
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ops import ssd as ssd_ops
 
-    FK.build()
-    NK.build()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, all started together
+        for f in [pool.submit(m.build) for m in (K, FK, SK, NK)]:
+            f.result()
     out = {"src": os.path.relpath(os.path.dirname(os.path.dirname(repro_torch.__file__)), HERE),
-           "card": card, "flash": {}, "rmsnorm": {}}
+           "card": card, "phase_sim": {}, "flash": {}, "ssd": {}, "rmsnorm": {}}
+    db = HardwareDatabase()
+    bud = calibrated_budget(db)
+    g = ar_complex()
+    for b in TIMING_BATCHES:
+        enc, rows = population(g, bud, 1, b, seed=7 + b, db=db, slots=_bucket(len(g.tasks)))
+        dev = rows_to(rows, "cuda")
+        w, nocs = enc.on("cuda"), phase_ops.pack_nocs(dev)
+        lay = K.out_layout(len(enc.names), rows["pe_peak"].shape[1], rows["mem_bw"].shape[1], 1,
+                           len(enc.wl_names))
+        res = torch.empty((b, lay["width"]), dtype=torch.float32, device="cuda")
+        out["phase_sim"][b] = dict(ms=cuda_time_ms(lambda: K.phase_sim_cuda(w, dev, nocs, res),
+                                                   200 if b <= 256 else 50))
+    if outputs_path:
+        got = phase_sim_outputs(db, bud)
+        if os.path.exists(outputs_path):
+            want = torch.load(outputs_path)
+            out["phase_sim_bitwise"] = dict(
+                against=outputs_path, cases=len(got),
+                outputs=sum(v.numel() for v in got.values()),
+                differing=sum(int((got[k] != want[k]).sum()) for k in got))
+        else:
+            os.makedirs(os.path.dirname(os.path.abspath(outputs_path)), exist_ok=True)
+            torch.save(got, outputs_path)
+            out["phase_sim_bitwise"] = dict(saved=outputs_path, cases=len(got))
     for s in (PREFILL["s"], 2048):
         b, h, kh, dh = PREFILL["b"], PREFILL["h"], PREFILL["kh"], PREFILL["dh"]
         q, k, v = flash_inputs(b, h, kh, s, dh, torch.bfloat16, seed=s)
@@ -945,6 +1128,12 @@ def kernel_times(card: str) -> dict:
         out["flash"][s] = dict(
             ms=cuda_time_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50),
             ops_ms=cuda_time_ms(lambda: flash_attention(qm, km, vm, causal=True), 50))
+    for s in (SSD_TIMED[1], 2048):
+        b, _, h, p, n, q = SSD_TIMED
+        args = ssd_model_inputs(b, s, h, p, n, seed=s)
+        dense = [t.contiguous() for t in args]
+        out["ssd"][s] = dict(ms=cuda_time_ms(lambda: SK.ssd_cuda(*dense, q), 50),
+                             ops_ms=cuda_time_ms(lambda: ssd_ops(*args, chunk=q), 50))
     for rows, d in RMS_TIMED:
         g = torch.Generator(device="cuda").manual_seed(rows + d)
         x = torch.randn(rows, d, generator=g, device="cuda").to(torch.bfloat16)
@@ -961,9 +1150,12 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only time the flash and RMSNorm kernels and print one JSON line")
+                    help="only time the four kernels and print one JSON line")
     ap.add_argument("--src", default=None,
                     help="with --kernel-times: the root of another checkout whose src/ to time")
+    ap.add_argument("--outputs", default=None,
+                    help="with --kernel-times: save the phase-sim outputs to this file, or, where "
+                         "it exists, count the outputs that differ from it bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -971,7 +1163,7 @@ def main() -> int:
     if args.kernel_times:
         if args.src:
             sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
-        print(json.dumps({"kernel_times": kernel_times(smi_line())}), flush=True)
+        print(json.dumps({"kernel_times": kernel_times(smi_line(), args.outputs)}), flush=True)
         return 0
     from repro_torch.core import (
         Explorer, ExplorerConfig, HardwareDatabase, ar_complex, audio,
@@ -1019,33 +1211,41 @@ def main() -> int:
     graphs = (("audio", audio(), bud), ("ar_complex", ar_complex(), bud),
               (syn.name, syn.tdg, syn.budget))
     t0 = time.perf_counter()
+
+    def populations():
+        for gname, g, gb in graphs:
+            for n_noc in (1, 2, 3):
+                for b in PARITY_BATCHES:
+                    # half the shapes padded as the backend pads them (the slot
+                    # bucket may exceed the thread count), half unpadded
+                    slots = _bucket(len(g.tasks)) if b in (4, 4096) else 0
+                    yield gname, n_noc, b, population(g, gb, n_noc, b, seed=1000 * n_noc + b, db=db,
+                                                      slots=slots)
+        for t, n_noc, b in TASK_CASES:
+            g, gb = sized_scenario(t, seed=t, db=db)
+            yield g.name, n_noc, b, population(g, gb, n_noc, b, seed=10 * n_noc + b, db=db)
+
     worst_rel, worst_abs, cases, failures = 0.0, 0.0, [], []
-    for gname, g, gb in graphs:
-        for n_noc in (1, 2, 3):
-            for b in PARITY_BATCHES:
-                # half the shapes padded as the backend pads them (the slot
-                # bucket may exceed the thread count), half unpadded
-                slots = _bucket(len(g.tasks)) if b in (4, 4096) else 0
-                enc, rows = population(g, gb, n_noc, b, seed=1000 * n_noc + b, db=db,
-                                       slots=slots)
-                dev = rows_to(rows, "cuda")
-                got = ops.phase_sim(enc, dev)
-                torch.cuda.synchronize()
-                want = phase_sim_ref(enc, dev)
-                torch.cuda.synchronize()
-                rel, ab, key, bad = compare(want, got)
-                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
-                case = {"graph": gname, "tasks": len(enc.names), "nocs": n_noc, "batch": b,
-                        "slots": rows["pe_peak"].shape[1], "max_rel_err": rel,
-                        "max_abs_err": ab, "worst": key}
-                cases.append(case)
-                if rel > REL_TOL or bad:
-                    failures.append({**case, "dtype": bad})
+    for gname, n_noc, b, (enc, rows) in populations():
+        dev = rows_to(rows, "cuda")
+        got = ops.phase_sim(enc, dev)
+        torch.cuda.synchronize()
+        want = phase_sim_ref(enc, dev)
+        torch.cuda.synchronize()
+        rel, ab, key, bad = compare(want, got)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
+        case = {"graph": gname, "tasks": len(enc.names), "nocs": n_noc, "batch": b,
+                "slots": rows["pe_peak"].shape[1], "max_rel_err": rel,
+                "max_abs_err": ab, "worst": key}
+        cases.append(case)
+        if rel > REL_TOL or bad:
+            failures.append({**case, "exact": bad})
     if failures:
         fail("parity", "kernel disagrees with the plain version", failures=failures[:12],
              n_failed=len(failures), n_cases=len(cases))
     emit("parity", ok=True, cases=len(cases), max_rel_err=worst_rel, max_abs_err=worst_abs,
-         tol=REL_TOL, seconds=time.perf_counter() - t0)
+         tol=REL_TOL, exact=list(EXACT_KEYS), tasks=sorted({c["tasks"] for c in cases}),
+         seconds=time.perf_counter() - t0)
 
     # ---- timing (at the main path's padded shapes) ---------------------------
     g = ar_complex()

@@ -73,7 +73,8 @@ class WorkloadTensors:
     write_bytes: torch.Tensor  # (T,) f32
     burst: torch.Tensor  # (T,) f32
     parent_mask: torch.Tensor  # (T, T) bool: [i, j] = j is a parent of i
-    parent_u8: torch.Tensor  # (T, T) uint8, the kernel's form of parent_mask
+    parent_u8: torch.Tensor  # (T, T) uint8: parent_mask as bytes
+    parent_words: torch.Tensor  # (T, ceil(T/32)) int32 bits: the kernel's form of parent_mask
     wl_id: torch.Tensor  # (T,) int32, -1 on padded tasks
     wl_hot: torch.Tensor  # (T, NW) bool one-hot of wl_id
 
@@ -155,10 +156,23 @@ class EncodedWorkload:
                 burst=vec(self.burst),
                 parent_mask=torch.from_numpy(pm).to(device),
                 parent_u8=torch.from_numpy(pm.astype(np.uint8)).to(device),
+                parent_words=torch.from_numpy(pack_parent_words(pm)).to(device),
                 wl_id=torch.from_numpy(wl).to(device),
                 wl_hot=torch.from_numpy(hot).to(device),
             )
         return w
+
+
+def pack_parent_words(pm: np.ndarray) -> np.ndarray:
+    """A (T, T) bool parent mask as (T, ceil(T/32)) words of 32 bits: bit
+    ``j % 32`` of word ``j // 32`` in row ``i`` is ``pm[i, j]``. int32 holds
+    the bits (the kernel reads them as uint32)."""
+    t = pm.shape[0]
+    nw = -(-t // 32)
+    bits = np.zeros((t, 32 * nw), np.uint64)
+    bits[:, :pm.shape[1]] = pm
+    words = (bits.reshape(t, nw, 32) << np.arange(32, dtype=np.uint64)).sum(-1)
+    return words.astype(np.uint32).view(np.int32)
 
 
 _WORKLOAD_DTYPES = {

@@ -8,7 +8,10 @@ bound with ``ctypes``. Nothing here runs at import: this module imports
 cleanly on a machine with no CUDA toolkit.
 
 One launch prices a whole batch: grid = B candidates, one thread per task
-(T padded up to a multiple of 32). The kernel writes ONE packed f32 row per
+(T padded up to a multiple of 32; a one-warp instance for T ≤ 32, the AR
+workloads, and a multi-warp one up to :data:`MAX_TASKS`). Task sets are
+bitmasks: the parent mask arrives as packed 32-bit words
+(``WorkloadTensors.parent_words``). The kernel writes ONE packed f32 row per
 candidate (:func:`out_layout`): the ``(B, 14 + S_pe + S_mem + N)`` scal block
 in ``core.scal_layout`` order, then the per-workload latencies, the finish
 times and the bottleneck codes (int32 bits), so a dispatch's results cross
@@ -119,7 +122,7 @@ def phase_sim_cuda(w, rows: Dict[str, torch.Tensor], nocs: torch.Tensor,
     f32, i32 = torch.float32, torch.int32
     for k in ("work_ops", "read_bytes", "write_bytes", "burst"):
         _check(k, getattr(w, k), f32, (t,))
-    _check("parent_u8", w.parent_u8, torch.uint8, (t, t))
+    _check("parent_words", w.parent_words, torch.int32, (t, -(-t // WARP)))
     _check("wl_id", w.wl_id, i32, (t,))
     widths = {"task_pe": t, "task_mem": t, "pe_accel": t, "wl_budget": n_wl,
               "noc_bw": n_noc, "noc_links": n_noc, "noc_leak": n_noc,
@@ -137,7 +140,7 @@ def phase_sim_cuda(w, rows: Dict[str, torch.Tensor], nocs: torch.Tensor,
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.phase_sim_launch(
         ptr(w.work_ops), ptr(w.read_bytes), ptr(w.write_bytes), ptr(w.burst),
-        ptr(w.parent_u8), ptr(w.wl_id),
+        ptr(w.parent_words), ptr(w.wl_id),
         ptr(rows["task_pe"]), ptr(rows["task_mem"]), ptr(rows["pe_accel"]),
         ptr(rows["pe_peak"]), ptr(rows["pe_pj"]), ptr(rows["pe_leak"]),
         ptr(rows["pe_area"]), ptr(rows["pe_noc"]), ptr(rows["pe_active"]),

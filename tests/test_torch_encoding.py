@@ -164,3 +164,26 @@ def test_from_reference_checks_keys_and_dtypes():
     with pytest.raises(KeyError):
         PT.from_reference({k: v for k, v in wl.items() if k != "llp"},
                           renc.names, renc.wl_names, rows, "cpu")
+
+
+@pytest.mark.parametrize("name", ["audio", "ar_complex", "edge_detection", "synthetic"])
+def test_parent_words_pack_parent_bytes(name):
+    """The phase-sim kernel's packed parent mask: bit j % 32 of word j // 32
+    in row i is parent_u8[i, j], ceil(T/32) words a task, unpadded and
+    padded as the CPU path pads (a > 32-task graph spans several words)."""
+    if name == "synthetic":
+        g = P.synthetic_family(3, 1, min_tasks=48, max_tasks=100)[0].tdg
+    else:
+        g = getattr(P, name)()
+    enc = PT.EncodedWorkload.of(g)
+    t = len(enc.names)
+    assert (t > 32) == (name == "synthetic")
+    for pad in (0, -(-t // 32) * 32):
+        w = enc.on("cpu", pad_to=pad)
+        tp = w.parent_u8.shape[0]
+        words = w.parent_words.numpy().view(np.uint32)
+        assert words.shape == (tp, -(-tp // 32)) and w.parent_words.dtype == torch.int32
+        bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+        assert np.array_equal(bits.reshape(tp, -1)[:, :tp], w.parent_u8.numpy())
+        assert not bits.reshape(tp, -1)[:, tp:].any()
+        assert np.array_equal(w.parent_u8.numpy().astype(bool), w.parent_mask.numpy())

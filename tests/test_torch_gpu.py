@@ -2,12 +2,15 @@
 PyTorch version and CPU path. Every test here needs a CUDA device: each
 carries the ``gpu`` marker and skips where there is none.
 
-This file imports only the port (no JAX, no JAX package), so it runs on a
-machine that has PyTorch with CUDA and nothing else of the test suite:
+This file imports only the port and ``chip_smoke.py``'s workload helpers
+(no JAX, no JAX package), so it runs on a machine that has PyTorch with CUDA
+and nothing else of the test suite:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 import random
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +20,9 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as P  # noqa: E402
 from repro_torch.core import phase_sim_torch as PT  # noqa: E402
 from repro_torch.core.moves import apply_fork  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import TASK_CASES, population, sized_scenario  # noqa: E402
 
 REL_TOL = 1e-5  # kernel vs plain version, every output column
 KEYS = (
@@ -111,6 +117,26 @@ def test_kernel_matches_plain_version(cuda, graph, n_noc):
     assert_close(got, phase_sim_ref(enc, dev), (graph, n_noc))
     # and the CPU path (padded plain version) prices the same rows alike
     assert_close(got, ops.phase_sim(enc, PT.rows_to(rows, "cpu")), (graph, n_noc, "cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,n_noc,b", TASK_CASES)
+def test_kernel_matches_plain_version_at_task_counts(cuda, t, n_noc, b):
+    """Synthetic AR-like graphs of t tasks (chip_smoke.sized_scenario) with
+    n_noc-deep chain designs, chip_smoke's grid of task counts (around the
+    one-warp path's edge at 32, up to the largest block): both instances of
+    the kernel against the plain version, every column <= 1e-5, codes
+    exact."""
+    from repro_torch.kernels.phase_sim import ops
+    from repro_torch.kernels.phase_sim.ref import phase_sim_ref
+
+    db = P.HardwareDatabase()
+    g, budget = sized_scenario(t, seed=t, db=db)
+    enc, rows = population(g, budget, n_noc, b, seed=10 * n_noc + b, db=db)
+    dev = PT.rows_to(rows, cuda)
+    got = ops.phase_sim(enc, dev)
+    torch.cuda.synchronize()
+    assert_close(got, phase_sim_ref(enc, dev), (t, n_noc, b))
 
 
 @pytest.mark.gpu

@@ -45,6 +45,69 @@ def inputs(b, s, h, p, n, dtype, device, seed=0, bc_dtype=torch.float32):
     return x, dt, a, bm, cm
 
 
+def model_inputs(b, s, h, p, n, dtype, device, seed=0):
+    """x, dt, a, B, C as the model passes them: x, B and C views of one
+    (B, S, H*P + 2N) projection (strided, not copied), dt (B, S, H) f32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g, device=device))
+    a = -torch.exp(torch.randn(h, generator=g, device=device))
+    return xbc[..., :h * p].view(b, s, h, p), dt, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+
+@pytest.mark.gpu
+def test_wgmma_tile_matches_matmul(cuda):
+    """One tile of each tensor-core product (TMA swizzle, descriptors, the
+    A fragments and the hi/lo split) against torch.matmul in f32, before any
+    test of the whole scan."""
+    from repro_torch.kernels.ssd.kernel import wgmma_tile
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    c, b = (torch.randn(64, 128, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    x = torch.randn(64, 64, generator=g, device=cuda).to(torch.bfloat16)
+    h = torch.randn(64, 128, generator=g, device=cuda)
+    s, yo, yd, ds = wgmma_tile(c, b, x, h)
+    torch.cuda.synchronize()
+    cf, bf, xf = c.float(), b.float(), x.float()
+    for got, want in ((s, cf @ bf.T), (yo, cf @ h.T), (yd, s @ xf), (ds, xf.T @ bf)):
+        torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
+
+
+# chunk, head dim P and state N each 64 or 128, S from one chunk to 2048; in
+# f32 (the CUDA-core route) not all three at 128, whose 276 KB of shared
+# memory that kernel cannot have
+ROUTE_CASES = [(dtype, q, p, n, s) for dtype in (torch.bfloat16, torch.float32)
+               for q in (64, 128) for p in (64, 128) for n in (64, 128) for s in sorted({q, 512, 2048})
+               if dtype == torch.bfloat16 or (q, p, n) != (128, 128, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,q,p,n,s", ROUTE_CASES)
+def test_each_route_reads_the_model_layout(cuda, dtype, q, p, n, s):
+    """ops.ssd on x, B and C sliced from one projection: bf16 takes the
+    tensor-core route and reads them in place, f32 the CUDA-core route."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_reference
+
+    b, h = (2, 4) if s < 2048 else (1, 2)
+    x, dt, a, bm, cm = model_inputs(b, s, h, p, n, dtype, cuda, seed=q + p + n + s)
+    assert not x.is_contiguous() and not bm.is_contiguous()
+    want_route = K.route(dtype, dtype, q, p, n)
+    assert want_route == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+    if want_route == "tensor_cores":
+        assert K.kernel_reads(x) and K.kernel_reads(bm) and K.kernel_reads(cm)
+    before = dict(K.launches_by_route)
+    y, h_final = ssd(x, dt, a, bm, cm, chunk=q)
+    torch.cuda.synchronize()
+    assert {r: K.launches_by_route[r] - before[r] for r in K.ROUTES} == {
+        r: int(r == want_route) for r in K.ROUTES}
+    y_ref, h_ref = ssd_reference(x, dt, a, bm, cm, chunk=q)
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=Y_TOL[dtype], rtol=Y_TOL[dtype])
+    torch.testing.assert_close(h_final, h_ref, atol=H_TOL, rtol=H_TOL)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_matches_plain_version(cuda, case):

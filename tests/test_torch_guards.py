@@ -105,3 +105,22 @@ def test_flash_source_is_built_on_hopper_primitives():
         assert needle in code, needle
     assert "extern \"C\" int flash_attention_tc_launch" in code
     assert "extern \"C\" int flash_attention_launch" in code
+
+
+@pytest.mark.parametrize("name,needles", [
+    # the SSD tensor-core route: wgmma products fed by TMA under mbarriers,
+    # h's hi/lo tiles made visible to the async proxy, both entry points
+    ("ssd", ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
+             "mbarrier.arrive.expect_tx", "wgmma.fence", "fence.proxy.async", "cuTensorMapEncodeTiled",
+             "CU_TENSOR_MAP_SWIZZLE_128B", "extern \"C\" int ssd_tc_launch", "extern \"C\" int ssd_launch")),
+    # phase-sim: task sets as warp ballots and bitmasks, the parent mask packed
+    ("phase_sim", ("__ballot_sync", "__match_any_sync", "__popc", "__ffs", "pwords",
+                   "phase_sim_kernel<true>", "phase_sim_kernel<false>")),
+])
+def test_redesigned_source_is_built_on_its_primitives(name, needles):
+    """A rewrite of the SSD or phase-sim kernel that drops any of these is a
+    different design (the flash kernel's counterpart is above)."""
+    with open(os.path.join(PORT, "kernels", name, "csrc", f"{name}.cu")) as f:
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+    for needle in needles:
+        assert needle in code, needle

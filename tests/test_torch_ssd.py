@@ -143,3 +143,80 @@ def test_contract_and_device_checks():
     # the kernel wrapper takes CUDA tensors only, and raises before any build
     with pytest.raises(ValueError, match="CUDA"):
         K.ssd_cuda(x, dt, a, bm, cm, 32)
+
+
+# (x dtype, B/C dtype, chunk, P, N) -> the route kernel.route must pick: bf16
+# throughout with every size 64 or 128 takes the tensor cores, anything else
+# the CUDA cores
+ROUTE_RULE = [
+    ((torch.bfloat16, torch.bfloat16, 64, 64, 128), "tensor_cores"),  # Mamba2-370m's serving prefill
+    ((torch.bfloat16, torch.bfloat16, 128, 64, 128), "tensor_cores"),  # ops.ssd's default chunk
+    ((torch.bfloat16, torch.bfloat16, 64, 128, 64), "tensor_cores"),
+    ((torch.bfloat16, torch.bfloat16, 128, 128, 128), "tensor_cores"),
+    ((torch.bfloat16, torch.bfloat16, 32, 64, 128), "cuda_cores"),  # chunk below a wgmma tile
+    ((torch.bfloat16, torch.bfloat16, 96, 64, 128), "cuda_cores"),  # chunk no multiple of 64
+    ((torch.bfloat16, torch.bfloat16, 64, 32, 128), "cuda_cores"),  # head dim
+    ((torch.bfloat16, torch.bfloat16, 64, 64, 16), "cuda_cores"),  # state
+    ((torch.bfloat16, torch.float32, 64, 64, 128), "cuda_cores"),  # B, C in f32 (the reference's tests)
+    ((torch.float32, torch.bfloat16, 64, 64, 128), "cuda_cores"),
+    ((torch.float32, torch.float32, 64, 64, 128), "cuda_cores"),  # f32 keeps its f32 products
+]
+
+
+@pytest.mark.parametrize("args,want", ROUTE_RULE)
+def test_route_rule(args, want):
+    assert K.route(*args) == want
+
+
+def model_slices(b, s, h, p, n, dtype, seed):
+    """(jax arrays, torch tensors) of x, dt, a, B, C as the model passes
+    them: x, B and C views of one (B, S, H*P + 2N) projection (strided, not
+    copied), dt = softplus(normal), a = -exp(normal)."""
+    rng = np.random.default_rng(seed)
+    xbc = rng.standard_normal((b, s, h * p + 2 * n)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(h))).astype(np.float32)
+    t = torch.from_numpy(xbc).to(TORCH_DTYPE[dtype])
+    tx = [t[..., :h * p].view(b, s, h, p), torch.from_numpy(dt), torch.from_numpy(a),
+          t[..., h * p:h * p + n], t[..., h * p + n:]]
+    j = jnp.asarray(xbc).astype(dtype)
+    jx = [j[..., :h * p].reshape(b, s, h, p), jnp.asarray(dt), jnp.asarray(a), j[..., h * p:h * p + n],
+          j[..., h * p + n:]]
+    return jx, tx
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ops_on_model_slices_matches_references(dtype, chunk):
+    """``ops.ssd`` on the model's strided slices (on the CPU: the plain
+    version) against ``ssd_reference`` on contiguous copies and the Pallas
+    kernel in interpret mode; the slices stay views, and on the card the
+    tensor-core route reads exactly these strides (``kernel_reads``)."""
+    b, s, h, p, n = 1, 256, 2, 64, 128
+    jx, tx = model_slices(b, s, h, p, n, dtype, seed=chunk)
+    x, dt, a, bm, cm = tx
+    assert not x.is_contiguous() and not bm.is_contiguous() and not cm.is_contiguous()
+    launches = K.ssd_cuda.launches
+    y, h_final = ssd(x, dt, a, bm, cm, chunk=chunk)
+    assert K.ssd_cuda.launches == launches
+    assert y.dtype == x.dtype and y.shape == x.shape and h_final.shape == (b, h, p, n)
+    y_c, h_c = ssd_reference(*(t.contiguous() for t in tx), chunk=chunk)
+    assert torch.equal(y, y_c) and torch.equal(h_final, h_c)
+    y_k, h_k = ref_ssd(*jx, chunk=chunk, interpret=True)
+    close(y, y_k, y_tol(dtype))
+    close(h_final, h_k, H_TOL)
+    if dtype == jnp.bfloat16:
+        assert all(K.kernel_reads(t) for t in (x, bm, cm))
+        assert K.route(x.dtype, bm.dtype, chunk, p, n) == "tensor_cores"
+
+
+def test_kernel_reads_rule():
+    """The tensor-core route's stride rule: last dim contiguous, the base and
+    the other strides 16-byte aligned; a dim of size 1 may have any stride."""
+    t = torch.zeros(2, 64, 4 * 64 + 256, dtype=torch.bfloat16)
+    assert K.kernel_reads(t[..., :256].view(2, 64, 4, 64))
+    assert K.kernel_reads(t[..., 256:384])
+    assert not K.kernel_reads(t[..., 1:129])  # base 2 bytes past alignment
+    assert not K.kernel_reads(t[..., :256].view(2, 64, 4, 64).transpose(2, 3))  # last dim strided
+    assert not K.kernel_reads(torch.zeros(2, 64, 129, dtype=torch.bfloat16)[..., :128])  # row of 258 bytes
+    assert K.kernel_reads(torch.zeros(1, 64, 129, dtype=torch.bfloat16)[:, :1, :128])  # size-1 dims
