@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
 
-Drives the port's three paths and checks them: FARSI's price-and-search
-loop, ``Explorer.run()`` on the AR workload complex, through the CUDA
-phase-sim kernel; serving Qwen3-1.7B at full width and depth (``generate``:
-prefill and greedy decode) through the CUDA flash-attention kernel; and
-serving Mamba2-370m at full width and depth through the CUDA SSD and RMSNorm
-kernels. Phases, each printing one JSON line:
+Drives the port's paths and checks them: FARSI's price-and-search loop,
+``Explorer.run()`` on the AR workload complex, through the CUDA phase-sim
+kernel; the device chain block (``Explorer.run_chains()``), whose every
+iteration prices R chains through the same kernel; serving Qwen3-1.7B at
+full width and depth (``generate``: prefill and greedy decode) through the
+CUDA flash-attention kernel; and serving Mamba2-370m at full width and depth
+through the CUDA SSD and RMSNorm kernels. Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
@@ -17,12 +18,29 @@ kernels. Phases, each printing one JSON line:
                exact (audio, ar_complex and a > 32-task synthetic graph at
                1–3 NoCs; synthetic graphs of 1, 28, 31, 32, 33, 64, 257 and
                1024 tasks at 1, 2 and 8 NoCs; B ∈ {1, 4, 256, 4096}, fewer
-               at 257 and 1024 tasks)
+               at 257 and 1024 tasks; random DAGs of 40, 64 and 100 tasks,
+               seeds 0-2, 16 designs each, with the worst error per column)
   4. timing    kernel and plain-version times (CUDA events) beside the bound
   5. main_path Explorer.run() on ar_complex, farsi, seed 1, 500 iterations;
                the kernel's launch count is zeroed just before and read just
                after, and the best design is re-priced by the scalar simulator
   6. golden    two recorded accepted-move sequences replayed on the card
+  6a. chain    the device chain block (DeviceChainRunner.run_chains) on
+               ar_complex, farsi menu, alloc on, K = 32, through the
+               phase-sim kernel: R = 1, 16, 256, wall per block
+               (synchronised, median of 3) and chain steps/s; exactly K
+               kernel launches a block; the K iterations run under
+               torch.cuda.set_sync_debug_mode("error"); the fused R = 1
+               block equals run_chains_host bit for bit, chains 0, 5, 15
+               at R = 16 equal those at R = 256; an R = 4, K = 16 block on
+               the card samples the sequences the CPU path samples; device
+               kernels per step and busy share of an R = 16 block (profiler),
+               host µs and kernels of a step's three threefry draws
+  6b. chain_explore  Explorer.run_chains() on ar_complex, chain_r 16,
+               chain_k 32, chain_alloc, 512 iterations: wall, chain steps/s,
+               dispatches, cached blocks, kernel launches (one per
+               iteration plus the winner's decode), beside main_path's
+               sims/s; the best design re-priced by the scalar simulator
   7. flash_build   nvcc build of the flash kernel (started in parallel with
                    the phase-sim build; registers, shared memory, spills)
   8. flash_parity  flash kernel vs its plain version on the card: bf16 and
@@ -53,12 +71,16 @@ kernels. Phases, each printing one JSON line:
                    version on the card, y and the final state:
                    tests/test_kernels.py's SSD_CASES, the serving shape (B=4,
                    S=512, H=32, P=64, N=128) in bf16 and f32 at chunk 64 and
-                   128, and S=2048 (contiguous, through ssd_cuda); and
-                   ops.ssd on x, B and C sliced from one projection at chunk,
-                   P and N in {64, 128}, S from one chunk to 2048, bf16 and
-                   f32; each case reports the route it took and fails on
+                   128, S=2048, and chunk = P = N = 128 in f32 and with x
+                   and B/C of different dtypes (the CUDA-core route, its head
+                   dim split over two blocks) (contiguous, through ssd_cuda);
+                   and ops.ssd on x, B and C sliced from one projection at
+                   chunk, P and N in {64, 128}, S from one chunk to 2048, bf16
+                   and f32; each case reports the route it took and fails on
                    another than kernel.route names; y <= 5e-2 (bf16) / 1e-3
-                   (f32), h <= 1e-3, the reference's own bars
+                   (f32), h <= 1e-3, the reference's own bars; then CUDA-core
+                   instances that fit whole, run with the head dim split
+                   across blocks: equal to the whole instance bit for bit
  13. rmsnorm_parity  RMSNorm kernel vs its plain version: test_kernels.py's
                    shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048),
                    a ragged (1000, 1024), an odd (33, 1001), qk-norm's
@@ -231,6 +253,47 @@ def sized_scenario(t: int, seed: int, db):
     return g, synthetic_budget(g, db)
 
 
+RANDOM_DAG_TASKS = (40, 64, 100)
+RANDOM_DAG_SEEDS = (0, 1, 2)
+RANDOM_DAG_DESIGNS = 16
+
+
+def random_dag(t: int, seed: int):
+    """A random task graph of ``t`` tasks: each earlier task is a parent of
+    a later one with probability 0.08; work is log-uniform in 1e5–1e7 ops,
+    read and write intensities uniform in 1–16 ops/byte (burst and llp the
+    task defaults). Deterministic in (t, seed)."""
+    import numpy as np
+
+    from repro_torch.core.tdg import Task, TaskGraph
+
+    rng = np.random.default_rng(seed)
+    g = TaskGraph(f"rand{t}_{seed}")
+    for i in range(t):
+        work = float(10.0 ** rng.uniform(5.0, 7.0))
+        i_rd, i_wr = (float(x) for x in rng.uniform(1.0, 16.0, 2))
+        g.add_task(Task(f"t{i}", work, i_rd, i_wr))
+        for j in range(i):
+            if rng.random() < 0.08:
+                g.add_edge(f"t{j}", f"t{i}")
+    return g
+
+
+def random_dag_rows(t: int, seed: int, db, b: int = RANDOM_DAG_DESIGNS):
+    """``b`` random single-NoC designs (``random_single_noc_designs``) of
+    :func:`random_dag` (t, seed), with the calibrated budget."""
+    from repro_torch.core import calibrated_budget, random_single_noc_designs
+    from repro_torch.core.phase_sim_torch import EncodedWorkload, encode_batch, fill_budget
+
+    g = random_dag(t, seed)
+    bud = calibrated_budget(db)
+    enc = EncodedWorkload.of(g)
+    rows = encode_batch(random_single_noc_designs(g, b, seed=seed), g, db, enc)
+    for j in range(b):
+        fill_budget(rows, j, enc, bud.latency_s, bud.power_w, bud.area_mm2, 0.05)
+    return g, enc, rows
+
+
 def compare(want, got):
     """(max relative error, max absolute error, worst key, problems): the
     problems name outputs of the wrong dtype and integer outputs (codes,
@@ -254,6 +317,15 @@ def compare(want, got):
     bad = [k for k in EXACT_KEYS if got[k].dtype != (torch.bool if k == "all_done" else torch.int32)]
     bad += [f"{k} differs" for k in EXACT_KEYS if k not in bad and not torch.equal(got[k], want[k])]
     return worst_rel, worst_abs, worst_key, bad
+
+
+def column_errors(want, got) -> dict:
+    """Worst relative error per output column (codes and counts included)."""
+    out = {}
+    for key in CHECK_KEYS:
+        a64, b64 = want[key].double(), got[key].double()
+        out[key] = ((a64 - b64).abs() / a64.abs().clamp(min=1e-12)).max().item() if a64.numel() else 0.0
+    return out
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -320,6 +392,154 @@ def timed(fn):
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
+
+
+# ---- the device chain block -------------------------------------------------------
+CHAIN_K = 32  # iterations per fused block
+CHAIN_RS = (1, 16, 256)  # chain populations timed
+CHAIN_BLOCKS = 3  # timed blocks per population (after one untimed)
+CHAIN_SAME = (0, 5, 15)  # chains held equal between R = 16 and R = 256
+CHAIN_EXPLORE_ITERATIONS = 512
+
+
+def sync_errors():
+    """A context in which a host synchronisation on the card raises."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def guard():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return guard
+
+
+def same_block(a, b, chains=None) -> bool:
+    """Two chain blocks equal bit for bit on the given chains: sampled rows,
+    accepts, fitness trace and every carry leaf."""
+    import numpy as np
+
+    idx = list(range(a.move_idx.shape[0])) if chains is None else list(chains)
+    return (all(a.seq(i) == b.seq(i) for i in idx)
+            and np.array_equal(a.fit_trace[idx], b.fit_trace[idx])
+            and all(np.array_equal(x[idx], y[idx]) for x, y in zip(a.carry, b.carry)))
+
+
+def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
+    """Phases ``chain`` and ``chain_explore``: the device chain block on
+    ar_complex (farsi menu, alloc on) through the phase-sim kernel. Returns
+    the kernel launches of each path."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        DeviceChainRunner, Explorer, ExplorerConfig, ar_complex, distance, prng,
+        random_single_noc_designs, simulate,
+    )
+    from repro_torch.kernels.phase_sim import kernel as K
+
+    g = ar_complex()
+    design = random_single_noc_designs(g, 1, seed=1)[0]
+    kw = dict(menu="farsi", alloc=True, seed=1)
+    runner = DeviceChainRunner(g, db)
+    runner.loop_guard = sync_errors()  # no host sync inside the K iterations
+    t0 = time.perf_counter()
+    per_r, blocks = [], {}
+    for r in CHAIN_RS:
+        runner.run_chains(design, bud, r=r, k=CHAIN_K, **kw)  # builds the block, first launches
+        walls, launches = [], []
+        for _ in range(CHAIN_BLOCKS):
+            torch.cuda.synchronize()
+            n0 = K.phase_sim_cuda.launches
+            t1 = time.perf_counter()
+            res = runner.run_chains(design, bud, r=r, k=CHAIN_K, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            launches.append(K.phase_sim_cuda.launches - n0)
+        blocks[r] = res
+        wall = float(np.median(walls))
+        per_r.append(dict(r=r, k=CHAIN_K, wall_s=wall, walls_s=walls,
+                          chain_steps_per_s=r * CHAIN_K / wall, launches_per_block=launches,
+                          accepted=int(res.accepted.sum()), best_fitness=float(res.fitness.min())))
+        if any(n != CHAIN_K for n in launches):
+            fail("chain", f"a block of K = {CHAIN_K} did not launch the kernel K times", per_r=per_r)
+    # where a step's time goes: device kernels per step and the busy share
+    # of one R = 16 block, and the host cost of the step's three threefry
+    # draws (split, the categorical's bits, the accept's uniform)
+    runner.loop_guard = contextlib.nullcontext  # the profiler synchronises
+    prof = device_profile(lambda: runner.run_chains(design, bud, r=16, k=CHAIN_K, **kw))
+    runner.loop_guard = sync_errors()
+    keys = prng.fold_in(prng.prng_key(1), torch.arange(16)).cuda()
+    logits = torch.zeros((16, blocks[16].n_moves), device="cuda")
+
+    def draws():
+        kk = prng.split(keys, 3)
+        prng.categorical(kk[:, 1], logits)
+        prng.uniform(kk[:, 2])
+
+    draw_prof = device_profile(draws)
+    draw_us = wall_ms(draws, 200) * 1e3
+    host = runner.run_chains_host(design, bud, r=1, n_steps=CHAIN_K, **kw)
+    if not same_block(blocks[1], host):
+        fail("chain", "the fused R = 1 block differs from the host loop", per_r=per_r)
+    if not same_block(blocks[16], blocks[256], CHAIN_SAME):
+        fail("chain", "chains differ between R = 16 and R = 256", chains=list(CHAIN_SAME))
+    cpu = DeviceChainRunner(g, db, device="cpu").run_chains(design, bud, r=4, k=16, **kw)
+    card4 = runner.run_chains(design, bud, r=4, k=16, **kw)
+    cpu_fit = float(np.max(np.abs(cpu.fit_trace.astype(np.float64) - card4.fit_trace)
+                           / np.maximum(np.abs(cpu.fit_trace), 1e-12)))
+    if not all(cpu.seq(i) == card4.seq(i) for i in range(4)):
+        fail("chain", "the block on the card and on the CPU sampled different sequences",
+             fit_trace_rel_err=cpu_fit)
+    emit("chain", ok=True, graph="ar_complex", menu="farsi", alloc=True, per_r=per_r,
+         host_loop_wall_s=host.wall_s, host_loop_steps_per_s=CHAIN_K / host.wall_s,
+         fused_equals_host_loop=True, chains_equal_r16_r256=list(CHAIN_SAME),
+         cuda_equals_cpu_sequences=True, cpu_vs_cuda_fit_trace_rel_err=cpu_fit,
+         profile_r16={"wall_ms": prof["wall_ms"], "kernels_per_step": prof["kernels"] / CHAIN_K,
+                      "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
+                      "top": prof["top"]},
+         draws_per_step={"host_us": draw_us, "kernels": draw_prof["kernels"]},
+         n_compiles=runner.n_compiles, sync_debug_mode="error", card=card,
+         seconds=time.perf_counter() - t0)
+
+    # ---- chain_explore: Explorer.run_chains end to end --------------------------
+    K.phase_sim_cuda.launches = 0
+    t0 = time.perf_counter()
+    ex = Explorer(g, db, bud, ExplorerConfig(
+        policy="farsi", chain_r=16, chain_k=CHAIN_K, chain_alloc=True,
+        max_iterations=CHAIN_EXPLORE_ITERATIONS, seed=1))
+    res = ex.run_chains()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    explore_launches = K.phase_sim_cuda.launches
+    st = ex.backend.stats()
+    fit = distance(simulate(res.best_design, g, db), bud).fitness(0.05)
+    last = res.history[-1]["fitness"]
+    rel = abs(fit - last) / max(abs(fit), 1e-12)
+    summary = dict(
+        r=res.chain_r, k=CHAIN_K, iterations=res.iterations, n_sims=res.n_sims, wall_s=wall,
+        chain_steps_per_s=res.chain_r * res.iterations / wall,
+        main_path_sims_per_s=main_sims_per_s, n_dispatches=st.n_dispatches,
+        n_compiles=ex.backend.chain_runner().n_compiles, launches=explore_launches,
+        converged=res.converged, repriced_fitness=fit, history_fitness=last,
+        fitness_rel_err=rel, device=str(ex.backend.device), card=card,
+    )
+    if ex.backend.device.type != "cuda":
+        fail("chain_explore", "the explorer did not price on the card", **summary)
+    blocks_run = -(-CHAIN_EXPLORE_ITERATIONS // CHAIN_K)
+    if explore_launches != res.iterations + 1 or st.n_dispatches != blocks_run + 1:
+        fail("chain_explore", "not one launch per iteration plus the winner's decode", **summary)
+    if rel > REL_TOL:
+        fail("chain_explore", "best design re-priced off the search's fitness", **summary)
+    emit("chain_explore", ok=True, **summary)
+    return {"chain": CHAIN_K, "chain_explore": explore_launches}
 
 
 # ---- the serving path and its flash-attention kernel ---------------------------
@@ -642,6 +862,16 @@ SSD_CASES = [
     (1, 128, 4, 64, 32, 64, "bfloat16", "float32"),
 ] + [(4, 512, 32, 64, 128, q, dt, dt) for dt in ("bfloat16", "float32") for q in (64, 128)] + [
     (4, 2048, 32, 64, 128, 64, "bfloat16", "bfloat16"),
+] + [  # chunk = P = N = 128 on the CUDA-core route: its head dim split over two blocks
+    (2, 512, 4, 128, 128, 128, xd, bcd)
+    for xd, bcd in (("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"))
+]
+# (B, S, H, P, N, chunk, x dtype, B/C dtype, head-dim columns per block):
+# CUDA-core instances small enough to run whole, run again with the head dim
+# split across blocks; y and h must be equal bit for bit
+SSD_SPLIT_CASES = [(2, 512, 4, 128, 128, 64, "float32", "float32", pb) for pb in (64, 48, 32)] + [
+    (1, 256, 2, 64, 128, 128, "float32", "bfloat16", 32),
+    (2, 256, 4, 128, 64, 128, "bfloat16", "float32", 64),
 ]
 # (B, S, H, P, N, chunk, dtype) through ops.ssd on x, B and C sliced from one
 # projection, as the model passes them: bf16 takes the tensor-core route at
@@ -649,8 +879,7 @@ SSD_CASES = [
 # slices in place; f32 the CUDA-core route
 SSD_ROUTE_CASES = [(2 if s < 2048 else 1, s, 4 if s < 2048 else 2, p, n, q, dt)
                    for dt in ("bfloat16", "float32") for q in (64, 128) for p in (64, 128)
-                   for n in (64, 128) for s in sorted({q, 512, 2048})
-                   if dt == "bfloat16" or (q, p, n) != (128, 128, 128)]  # 276 KB: beyond the CUDA cores' kernel
+                   for n in (64, 128) for s in sorted({q, 512, 2048})]
 SSD_TILE_TOL = 1e-4  # one wgmma tile vs torch.matmul, over the tile's largest |value|
 SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chunk 64
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
@@ -823,7 +1052,18 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     if failures:
         fail("ssd_parity", "kernel disagrees with the plain version or took the wrong route",
              failures=failures, n_cases=len(cases))
-    emit("ssd_parity", ok=True, cases=cases, worst=ssd_worst, tile_err=tile_err,
+    split = []  # the head dim split across blocks against the whole instance, bit for bit
+    for i, (b, s, h, p, n, q, xd, bcd, pb) in enumerate(SSD_SPLIT_CASES):
+        args = ssd_inputs(b, s, h, p, n, dtypes[xd], dtypes[bcd], seed=300 + i)
+        whole = SK.ssd_cuda(*args, q, p_block=p)
+        parts = SK.ssd_cuda(*args, q, p_block=pb)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(whole, parts))
+        split.append(dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=bcd, p_block=pb,
+                          bitwise_equal=same))
+        if not same:
+            fail("ssd_parity", "the split instance differs from the whole one", case=split[-1])
+    emit("ssd_parity", ok=True, cases=cases, worst=ssd_worst, tile_err=tile_err, split=split,
          cases_by_route={r: sum(c["route"] == r for c in cases) for r in SK.ROUTES},
          tol={"y": SSD_Y_TOL, "h": SSD_H_TOL, "tile": SSD_TILE_TOL},
          check="|kernel - plain| <= tol + tol*|plain| everywhere, for y and h_final, on the "
@@ -1224,8 +1464,13 @@ def main() -> int:
         for t, n_noc, b in TASK_CASES:
             g, gb = sized_scenario(t, seed=t, db=db)
             yield g.name, n_noc, b, population(g, gb, n_noc, b, seed=10 * n_noc + b, db=db)
+        for t in RANDOM_DAG_TASKS:
+            for seed in RANDOM_DAG_SEEDS:
+                g, enc, rows = random_dag_rows(t, seed, db)
+                yield g.name, 1, RANDOM_DAG_DESIGNS, (enc, rows)
 
     worst_rel, worst_abs, cases, failures = 0.0, 0.0, [], []
+    dag_cols = dict.fromkeys(CHECK_KEYS, 0.0)  # random DAGs: worst relative error per column
     for gname, n_noc, b, (enc, rows) in populations():
         dev = rows_to(rows, "cuda")
         got = ops.phase_sim(enc, dev)
@@ -1233,6 +1478,9 @@ def main() -> int:
         want = phase_sim_ref(enc, dev)
         torch.cuda.synchronize()
         rel, ab, key, bad = compare(want, got)
+        if gname.startswith("rand"):
+            for col, err in column_errors(want, got).items():
+                dag_cols[col] = max(dag_cols[col], err)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
         case = {"graph": gname, "tasks": len(enc.names), "nocs": n_noc, "batch": b,
                 "slots": rows["pe_peak"].shape[1], "max_rel_err": rel,
@@ -1245,7 +1493,7 @@ def main() -> int:
              n_failed=len(failures), n_cases=len(cases))
     emit("parity", ok=True, cases=len(cases), max_rel_err=worst_rel, max_abs_err=worst_abs,
          tol=REL_TOL, exact=list(EXACT_KEYS), tasks=sorted({c["tasks"] for c in cases}),
-         seconds=time.perf_counter() - t0)
+         random_dag_max_rel_err=dag_cols, seconds=time.perf_counter() - t0)
 
     # ---- timing (at the main path's padded shapes) ---------------------------
     g = ar_complex()
@@ -1326,6 +1574,8 @@ def main() -> int:
         replayed.append({"cell": key, "iterations": len(seq), "n_sims": r.n_sims})
     emit("golden", ok=True, cells=replayed)
 
+    chain_launches = chain_phases(card, db, bud, summary["sims_per_s"])
+
     flash = flash_phases(card, flash_build)
     ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
 
@@ -1337,6 +1587,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/phase_sim/csrc/phase_sim.cu",
         "replaces": "src/repro/kernels/phase_sim/kernel.py:54",
         "launches": main_launches,
+        # each path's own count: a chain block launches once per iteration
+        "launches_by_path": {"main_path": main_launches, "chain_block": chain_launches["chain"],
+                             "chain_explore": chain_launches["chain_explore"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": ms,

@@ -19,6 +19,14 @@ from .codesign import CodesignLedger, FocusRecord
 from .database import HardwareDatabase
 from .design import Design
 from .design_space import random_single_noc_designs
+from .device_explore import (
+    ChainBlockResult,
+    ChainCarry,
+    ChainRequest,
+    DeviceChainRunner,
+    MoveTable,
+    reconcile_alloc,
+)
 from .explorer import AWARENESS_LEVELS, ExplorationResult, Explorer, ExplorerConfig
 from .gables import TaskRates, bottleneck_of, completion_time, phase_rates
 from .phase_sim import SimResult, simulate
@@ -55,9 +63,13 @@ __all__ = [
     "BottleneckRelaxation",
     "Budget",
     "Candidate",
+    "ChainBlockResult",
+    "ChainCarry",
+    "ChainRequest",
     "CodesignLedger",
     "Design",
     "DevCostPolicy",
+    "DeviceChainRunner",
     "DeviceSA",
     "Distance",
     "ExplorationResult",
@@ -69,6 +81,7 @@ __all__ = [
     "HardwareDatabase",
     "HeuristicPolicy",
     "LocalityExploitation",
+    "MoveTable",
     "NaiveSA",
     "POLICIES",
     "PythonBackend",
@@ -100,6 +113,7 @@ __all__ = [
     "paper_budget",
     "phase_rates",
     "random_single_noc_designs",
+    "reconcile_alloc",
     "simulate",
     "synthetic_family",
     "workload_of",

@@ -804,6 +804,7 @@ class TorchBatchedBackend:
         self._adopted: Dict[int, tuple] = {}
         self._shapes: set = set()
         self._stats = BackendStats()
+        self._chains = None  # the DeviceChainRunner, built at first use
         # static per-task tables for host-side SimResult reconstruction:
         # totals are design-independent; only the block subtype scales energy
         names = self._enc.names
@@ -832,6 +833,39 @@ class TorchBatchedBackend:
                 batch.wait()
                 batch.consumed = True
         self._inflight.clear()
+
+    def chain_runner(self):
+        """The lazily-built :class:`~repro_torch.core.device_explore.
+        DeviceChainRunner` this backend prices chain blocks with. Shares the
+        workload encoding and the device; owns its own block cache and
+        compile/fallback counters."""
+        if self._chains is None:
+            from .device_explore import DeviceChainRunner
+
+            self._chains = DeviceChainRunner(self.tdg, self.db, self._enc, device=self.device)
+        return self._chains
+
+    def run_chains(self, req):
+        """Price one fused (R, K) exploration block
+        (:class:`~repro_torch.core.device_explore.ChainRequest` in,
+        :class:`~repro_torch.core.device_explore.ChainBlockResult` out) — the
+        device-resident counterpart of ``evaluate_candidates``: one dispatch
+        runs K accept/reject iterations for R chains. Counted in the backend
+        stats as R·K simulated designs in one dispatch."""
+        runner = self.chain_runner()
+        t0 = time.perf_counter()
+        res = runner.run_chains(
+            req.design, req.budget, r=req.r, k=req.k, seed=req.seed,
+            it0=req.it0, menu=req.menu, alpha=req.alpha,
+            temperature0=req.temperature0, temp_decay=req.temp_decay,
+            taboo_ttl=req.taboo_ttl, carry=req.carry, alloc=req.alloc,
+            cap_pe=req.cap_pe, cap_mem=req.cap_mem,
+        )
+        self._stats.n_sims += req.r * req.k
+        self._stats.n_batched += req.r * req.k
+        self._stats.n_dispatches += 1
+        self._stats.wall_s += time.perf_counter() - t0
+        return res
 
     def adopt_encoding(self, handle: SimHandle) -> None:
         """Promote ``handle``'s row encoding to be its base design's cached

@@ -48,6 +48,12 @@ from .budgets import Budget, Distance
 from .codesign import CodesignLedger, FocusRecord
 from .database import HardwareDatabase
 from .design import Design
+from .device_explore import (
+    ChainBlockResult,
+    ChainRequest,
+    reconcile_alloc,
+    reconcile_mapping,
+)
 from .moves import MoveDelta, MoveSpec, apply_move
 from .phase_sim import SimResult
 from .policy import AWARENESS_POLICY, Focus, HeuristicPolicy, make_policy
@@ -87,6 +93,21 @@ class ExplorerConfig:
     # where the batched backend prices: the card unless the caller asks for
     # the CPU (where the kernel's plain PyTorch version runs)
     device: str = "cuda"
+    # device-resident chain blocks (run_chains): chain_r > 0 opts the search
+    # into the fused accept loop — R independent chains × K fused iterations
+    # per dispatch. chain_menu picks the device move menu ("" derives it
+    # from the policy's ``device_menu``; see device_explore.MENUS).
+    chain_r: int = 0
+    chain_k: int = 32
+    chain_menu: str = ""
+    # chain_alloc widens the device move table from mapping-only migrates to
+    # the mixed mapping+allocation menu (PE/MEM fork/join/frequency-swap +
+    # NoC attach over capacity-padded slot inventories). The whole run then
+    # explores platform shape on device; the winning chain's platform is
+    # reconciled onto the live design ONCE, after the last block
+    # (device_explore.reconcile_alloc), so the seed encoding — which the
+    # carry's fork provenance indexes — stays valid across blocks.
+    chain_alloc: bool = False
 
 
 @dataclasses.dataclass
@@ -103,6 +124,8 @@ class ExplorationResult:
     backend_name: str = "python"
     policy_name: str = "farsi"
     sim_wall_s: float = 0.0  # time inside backend.evaluate for this run
+    chained: bool = False  # ran as device-resident (R, K) chain blocks
+    chain_r: int = 0  # chain population size (chained runs only)
 
     def iterations_to_budget(self, cap: Optional[int] = None) -> float:
         """Iterations this run needed to reach budget — the policy-comparison
@@ -429,6 +452,153 @@ class Explorer:
                 handles = self.backend.evaluate_candidates(pending)
                 sim_wall += time.perf_counter() - t0
                 pending = gen.send(handles)
+        except StopIteration as stop:
+            flush = getattr(self.backend, "flush", None)
+            if flush is not None:
+                flush()
+            result: ExplorationResult = stop.value
+            result.sim_wall_s = sim_wall
+            return result
+
+    # ---- device-resident chain blocks -------------------------------------
+    def run_chain_steps(
+        self, initial: Optional[Design] = None
+    ) -> Generator[object, list, ExplorationResult]:
+        """Chain-batched coroutine form of the search: instead of yielding a
+        candidate list per SA iteration, yields one :class:`ChainRequest`
+        per fused (R, K) device block and is resumed with the matching
+        :class:`ChainBlockResult` (wrapped in a one-element list, so the
+        send protocol is that of :meth:`run_steps`). Between blocks the
+        winning chain's final mapping is reconciled onto the live design and
+        the device carry is stored on the policy (``device_sa`` checkpoints
+        it, so a crash restart resumes mid-population). The FINAL yield is
+        an ordinary one-candidate batch: the winner pays the usual single
+        decode, and nothing else in the search is ever decoded."""
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        r = max(1, cfg.chain_r)
+        k = max(1, cfg.chain_k)
+        menu = cfg.chain_menu or getattr(self.policy, "device_menu", "naive_sa")
+        cur = initial or Design.base(self.tdg)
+        pol = self.policy
+        self._cur = cur
+        carry = getattr(pol, "device_carry", None)
+        history: List[dict] = []
+        it, max_it = 0, cfg.max_iterations
+        res: Optional[ChainBlockResult] = None
+        while it < max_it:
+            kk = min(k, max_it - it)
+            req = ChainRequest(
+                design=cur, budget=self.budget, r=r, k=kk, seed=cfg.seed,
+                it0=it, menu=menu, alpha=cfg.alpha_met,
+                temperature0=cfg.temperature0, temp_decay=cfg.temp_decay,
+                taboo_ttl=cfg.taboo_ttl, carry=carry, alloc=cfg.chain_alloc,
+            )
+            (res,) = yield req
+            self.n_sims += r * kk
+            carry = res.carry
+            if hasattr(pol, "device_carry"):
+                pol.device_carry = carry
+            if self.track_restart:
+                self._restart_ck = (self.rng.getstate(), pol.checkpoint(), it + kk)
+            w = res.winner
+            for s in range(kk):
+                history.append(
+                    {
+                        "iteration": it + s,
+                        "n_sims": self.n_sims,
+                        # device path: the trace is the winner chain's Eq.-7
+                        # fitness (its city-block distance is only known
+                        # after the final decode)
+                        "fitness": float(res.fit_trace[w, s]),
+                        "move": "chain_mixed" if cfg.chain_alloc
+                        else "chain_migrate",
+                        "accepted": bool(res.accepted[w, s]),
+                        "wall_s": time.perf_counter() - t0,
+                    }
+                )
+            it += kk
+            if cfg.chain_alloc:
+                # allocation state lives in the carry; the design must stay
+                # the seed the provenance columns index, so nothing is
+                # reconciled until the run ends (below)
+                changed = {"task_pe": {}, "task_mem": {}}
+            else:
+                changed = reconcile_mapping(
+                    cur, res, self.tdg, self.db, self._chain_enc()
+                )
+            if self.on_improve is not None and (
+                changed["task_pe"] or changed["task_mem"]
+            ):
+                self.on_improve(
+                    {
+                        "iteration": it,
+                        "fitness": float(res.fitness[w]),
+                        "move": "chain_block",
+                        "chains": r,
+                        "changed": sum(map(len, changed.values())),
+                    }
+                )
+        if cfg.chain_alloc and res is not None:
+            # one shape change per search: replay the winning chain's
+            # platform (clones, removals, retunes, re-homes, mapping)
+            # through the moves.py allocation bridge
+            reconcile_alloc(cur, res, self.tdg, self.db, self._chain_enc())
+        # the ONE decode of the search: the reconciled winner
+        self.n_sims += 1
+        (h,) = yield [Candidate.of_design(cur, self.budget, cfg.alpha_met)]
+        best_dist = h.telemetry().dist(self.budget)
+        best_design = cur.clone(rename=False)
+        return ExplorationResult(
+            best_design=best_design,
+            best_result=h.result_for(best_design),
+            best_distance=best_dist,
+            converged=best_dist.converged(),
+            iterations=it,
+            n_sims=self.n_sims,
+            wall_s=time.perf_counter() - t0,
+            history=history,
+            ledger=pol.ledger,
+            backend_name=self.backend.name,
+            policy_name=pol.name,
+            chained=True,
+            chain_r=r,
+        )
+
+    def _chain_enc(self):
+        """The backend's cached workload encoding when it has one (so slot
+        dicts match its rows), else a lazily-built local one."""
+        enc = getattr(self.backend, "_enc", None)
+        if enc is None:
+            enc = getattr(self, "_own_enc", None)
+            if enc is None:
+                from .phase_sim_torch import EncodedWorkload
+
+                enc = self._own_enc = EncodedWorkload.of(self.tdg)
+        return enc
+
+    def run_chains(self, initial: Optional[Design] = None) -> ExplorationResult:
+        """Drive :meth:`run_chain_steps` against ``self.backend`` — one
+        ``backend.run_chains`` dispatch per (R, K) block (the backend must
+        support device chains, i.e. expose ``run_chains``), plus the final
+        winner decode through the ordinary candidate path."""
+        if not hasattr(self.backend, "run_chains"):
+            raise ValueError(
+                f"backend {self.backend.name!r} does not support device "
+                "chain blocks (no run_chains)"
+            )
+        gen = self.run_chain_steps(initial)
+        sim_wall = 0.0
+        try:
+            pending = next(gen)
+            while True:
+                t0 = time.perf_counter()
+                if isinstance(pending, ChainRequest):
+                    answer = [self.backend.run_chains(pending)]
+                else:
+                    answer = self.backend.evaluate_candidates(pending)
+                sim_wall += time.perf_counter() - t0
+                pending = gen.send(answer)
         except StopIteration as stop:
             flush = getattr(self.backend, "flush", None)
             if flush is not None:

@@ -97,8 +97,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // N + 1), xdt (Q x P), a tile of RT rows of the decay-masked C.B^T (RT x
 // (Q + 1)), h (P rows of N + 1), and dt, cum, exp(cum), exp(cum_{Q-1} - cum)
 // (Q each): 216 KB at Q=128, P=64, N=128, 125 KB at Q=64, so the block opts
-// in to dynamic shared memory above 48 KB. The odd row strides put the 16
-// rows a half-warp reads at one column in 16 different banks.
+// in to dynamic shared memory above 48 KB. Where a whole instance does not
+// fit a block's 227 KB (Q = P = N = 128 asks for 276 KB), the head dim is
+// split across blocks (grid z): each block takes pb columns of x and y and
+// the pb rows of h they feed, and recomputes the chunk's C.B^T, cumsum and
+// decays itself; every value is computed as in the whole instance. The odd
+// row strides put the 16 rows a half-warp reads at one column in 16
+// different banks.
 namespace cc {
 
 constexpr int NT = 256;       // threads per block
@@ -118,8 +123,12 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
                                                      const TBC* __restrict__ bm,
                                                      const TBC* __restrict__ cm,
                                                      TX* __restrict__ y, float* __restrict__ hout,
-                                                     int s, int nh, int p, int n, int q) {
+                                                     int s, int nh, int p_total, int pb, int n, int q) {
     extern __shared__ __align__(16) float smem[];
+    // this block's head-dim columns: [p_off, p_off + p) of x, y and the rows
+    // of h (each depends on its own x column alone, so no sum changes order)
+    const int p_off = blockIdx.z * pb;
+    const int p = min(pb, p_total - p_off);
     const int ldn = n + 1, ldq = q + 1;
     float* bs = smem;               // (Q, N + 1)
     float* cs = bs + q * ldn;       // (Q, N + 1)
@@ -159,7 +168,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
 #pragma unroll 8
         for (int e = tid; e < q * p; e += NT) {
             const int t = e / p, k = e - t * p;
-            xs[e] = to_f32(x[((tok0 + t) * nh + head) * p + k]) * dts[t];
+            xs[e] = to_f32(x[((tok0 + t) * nh + head) * p_total + p_off + k]) * dts[t];
         }
         __syncthreads();
         for (int t = tid; t < q; t += NT) {
@@ -246,7 +255,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
                 for (int ii = 0; ii < 2; ++ii) {
                     const int row = ty + 16 * ii, i = r0 + row;
                     if (row >= RT || i >= q) continue;
-                    TX* yrow = y + ((tok0 + i) * nh + head) * p;
+                    TX* yrow = y + ((tok0 + i) * nh + head) * p_total + p_off;
 #pragma unroll
                     for (int dd = 0; dd < SPAN; ++dd) {
                         const int col = tx + 16 * dd;
@@ -295,7 +304,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
         }
     }
     __syncthreads();
-    float* hp = hout + ((size_t)b * nh + head) * p * n;
+    float* hp = hout + (((size_t)b * nh + head) * p_total + p_off) * n;
     for (int e = tid; e < p * n; e += NT) {
         const int pp = e / n, k = e - pp * n;
         hp[e] = hs[pp * ldn + k];
@@ -303,9 +312,9 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
 }
 template <typename TX, typename TBC>
 int launch_typed(const void* x, const void* dt, const void* a, const void* bm, const void* cm,
-                 void* y, void* h, int bsz, int s, int nh, int p, int n, int q,
+                 void* y, void* h, int bsz, int s, int nh, int p, int n, int q, int pb,
                  cudaStream_t stream) {
-    const size_t smem = smem_floats(q, p, n) * sizeof(float);
+    const size_t smem = smem_floats(q, pb, n) * sizeof(float);
     static size_t granted = 48 * 1024;  // an instance keeps the largest opt-in it has had
     if (smem > granted) {
         cudaError_t err = cudaFuncSetAttribute(ssd_chunk_scan<TX, TBC>,
@@ -313,22 +322,23 @@ int launch_typed(const void* x, const void* dt, const void* a, const void* bm, c
         if (err != cudaSuccess) return (int)err;
         granted = smem;
     }
-    const dim3 grid(nh, bsz);
+    const dim3 grid(nh, bsz, (p + pb - 1) / pb);
     ssd_chunk_scan<TX, TBC><<<grid, NT, smem, stream>>>(
         static_cast<const TX*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
         static_cast<const TBC*>(bm), static_cast<const TBC*>(cm), static_cast<TX*>(y),
-        static_cast<float*>(h), s, nh, p, n, q);
+        static_cast<float*>(h), s, nh, p, pb, n, q);
     return (int)cudaGetLastError();
 }
 
 template <typename TX>
 int launch_bc(const void* x, const void* dt, const void* a, const void* bm, const void* cm,
-              void* y, void* h, int bc_dtype, int bsz, int s, int nh, int p, int n, int q,
+              void* y, void* h, int bc_dtype, int bsz, int s, int nh, int p, int n, int q, int pb,
               cudaStream_t stream) {
     switch (bc_dtype) {
-        case 0: return launch_typed<TX, float>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, stream);
+        case 0: return launch_typed<TX, float>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, pb, stream);
         case 1:
-            return launch_typed<TX, __nv_bfloat16>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, stream);
+            return launch_typed<TX, __nv_bfloat16>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, pb,
+                                                   stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -1030,18 +1040,22 @@ int tile(const void* c, const void* bm, const void* x, const void* h, float* s_o
 extern "C" size_t ssd_smem_bytes(int q, int p, int n) { return cc::smem_floats(q, p, n) * sizeof(float); }
 
 // The CUDA-core route. x_dtype, bc_dtype: 0 float32, 1 bfloat16; every
-// tensor contiguous. Returns cudaGetLastError() of the launch (0 on
-// success); never synchronises.
+// tensor contiguous. pb: the head-dim columns one block takes (1 <= pb <=
+// p; ceil(p / pb) blocks per (head, batch row), each sized for pb).
+// Returns cudaGetLastError() of the launch (0 on success); never
+// synchronises.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* a, const void* bm,
                           const void* cm, void* y, void* h, int x_dtype, int bc_dtype, int bsz,
-                          int s, int nh, int p, int n, int q, void* stream) {
-    if (q <= 0 || q > cc::MAX_DIM || p <= 0 || p > cc::MAX_DIM || n <= 0 || n > cc::MAX_DIM || s % q)
+                          int s, int nh, int p, int n, int q, int pb, void* stream) {
+    if (q <= 0 || q > cc::MAX_DIM || p <= 0 || p > cc::MAX_DIM || n <= 0 || n > cc::MAX_DIM || s % q ||
+        pb <= 0 || pb > p)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (x_dtype) {
-        case 0: return cc::launch_bc<float>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, st);
+        case 0: return cc::launch_bc<float>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, pb, st);
         case 1:
-            return cc::launch_bc<__nv_bfloat16>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, st);
+            return cc::launch_bc<__nv_bfloat16>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, pb,
+                                                st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -19,13 +19,15 @@ across a sequential grid axis).
     ring fed by a producer warp, h in registers. x, B and C are read in
     place through their strides (:func:`kernel_reads`), dt through its own.
   * ``"cuda_cores"``: everything else, f32 included. f32 FMAs from shared
-    memory; every input contiguous.
+    memory; every input contiguous. Where one (head, batch row) instance
+    would need more shared memory than a block has (chunk = P = N = 128),
+    its head dim is split across blocks (:func:`cc_p_block`).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +41,8 @@ NVCC_FLAGS = (
 )
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 128  # the largest chunk, head dim and state the kernel takes
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block can opt in to
+CC_RT = 32  # rows of the CUDA-core route's C.B^T tile (csrc/ssd.cu cc::RT)
 TC_DIMS = (64, 128)  # the tensor-core route's chunk, head dim and state sizes
 ROUTES = ("tensor_cores", "cuda_cores")
 
@@ -54,9 +58,29 @@ def route(x_dtype: torch.dtype, bc_dtype: torch.dtype, chunk: int, p: int, n: in
     return "tensor_cores" if bf16 and all(d in TC_DIMS for d in (chunk, p, n)) else "cuda_cores"
 
 
+def cc_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory (bytes) of one CUDA-core block at chunk Q, head-dim
+    columns P and state N: B and C (Q rows of N + 1), x·dt (Q × P), a C·Bᵀ
+    tile (RT × (Q + 1)), h (P rows of N + 1) and four (Q,) vectors, in f32.
+    The same sum as ``cc::smem_floats`` in ``csrc/ssd.cu`` (the library's
+    ``ssd_smem_bytes``)."""
+    return 4 * (2 * chunk * (n + 1) + chunk * p + CC_RT * (chunk + 1) + p * (n + 1) + 4 * chunk)
+
+
+def cc_p_block(chunk: int, p: int, n: int) -> int:
+    """The head-dim columns one CUDA-core block takes: all P where the
+    instance fits :data:`SMEM_LIMIT`, else P halved (rounded up) until it
+    does. The blocks of one (head, batch row) split P; no sum changes
+    order, so the outputs are those of the whole instance bit for bit."""
+    pb = p
+    while cc_smem_bytes(chunk, pb, n) > SMEM_LIMIT and pb > 1:
+        pb = -(-pb // 2)
+    return pb
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-    lib.ssd_launch.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.ssd_launch.restype = ci
     lib.ssd_tc_launch.argtypes = [vp] * 7 + [ll] + [ci] * 6 + [vp]
     lib.ssd_tc_launch.restype = ci
@@ -104,13 +128,15 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
-             c_mat: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+             c_mat: torch.Tensor, chunk: int, p_block: Optional[int] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream: x (B, S, H, P) float32 or
     bfloat16, dt (B, S, H) and a (H,) float32, b_mat and c_mat (B, S, N)
     float32 or bfloat16, on one CUDA device; ``chunk`` ≤ 128 divides S, and
     P, N ≤ 128. On the tensor-core route (:func:`route`) x, B, C and dt may
     be strided views (:func:`kernel_reads`); on the CUDA-core route every
-    input is contiguous. Returns (y (B, S, H, P) in x's dtype, contiguous,
+    input is contiguous, and ``p_block`` (default :func:`cc_p_block`) sets
+    the head-dim columns a block takes. Returns (y (B, S, H, P) in x's dtype, contiguous,
     h_final (B, H, P, N) float32). Raises if an argument is off or the
     launch fails; never synchronises."""
     if x.dim() != 4:
@@ -145,6 +171,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
         raise ValueError(f"ssd_cuda: chunk {chunk} must be in 1..{MAX_DIM} and divide S = {s}")
     if not 0 < p <= MAX_DIM or not 0 < n <= MAX_DIM:
         raise ValueError(f"ssd_cuda: head dim {p} and state {n} must be in 1..{MAX_DIM}")
+    pb = cc_p_block(chunk, p, n) if p_block is None else p_block
+    if which == "cuda_cores" and not (0 < pb <= p and cc_smem_bytes(chunk, pb, n) <= SMEM_LIMIT):
+        raise ValueError(f"ssd_cuda: p_block {pb} must be in 1..{p} and fit {SMEM_LIMIT} bytes")
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if bsz == 0 or h == 0:
@@ -158,9 +187,10 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
                                              + tuple(dt.stride())))
         err = lib.ssd_tc_launch(*ptrs, strides, bsz, s, h, p, n, chunk, stream)
     else:
-        err = lib.ssd_launch(*ptrs, DTYPES[x.dtype], DTYPES[b_mat.dtype], bsz, s, h, p, n, chunk, stream)
+        err = lib.ssd_launch(*ptrs, DTYPES[x.dtype], DTYPES[b_mat.dtype], bsz, s, h, p, n, chunk, pb,
+                             stream)
     if err != 0:
-        smem = f", {lib.ssd_smem_bytes(chunk, p, n)} bytes of shared memory" if which == "cuda_cores" else ""
+        smem = f", {lib.ssd_smem_bytes(chunk, pb, n)} bytes of shared memory" if which == "cuda_cores" else ""
         _check(lib, err, f"ssd kernel launch ({which}{smem})")
     ssd_cuda.launches += 1
     launches_by_route[which] += 1

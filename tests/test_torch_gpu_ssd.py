@@ -73,12 +73,11 @@ def test_wgmma_tile_matches_matmul(cuda):
         torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
 
 
-# chunk, head dim P and state N each 64 or 128, S from one chunk to 2048; in
-# f32 (the CUDA-core route) not all three at 128, whose 276 KB of shared
-# memory that kernel cannot have
+# chunk, head dim P and state N each 64 or 128, S from one chunk to 2048 (in
+# f32 at chunk = P = N = 128 the CUDA-core route splits the head dim over
+# two blocks)
 ROUTE_CASES = [(dtype, q, p, n, s) for dtype in (torch.bfloat16, torch.float32)
-               for q in (64, 128) for p in (64, 128) for n in (64, 128) for s in sorted({q, 512, 2048})
-               if dtype == torch.bfloat16 or (q, p, n) != (128, 128, 128)]
+               for q in (64, 128) for p in (64, 128) for n in (64, 128) for s in sorted({q, 512, 2048})]
 
 
 @pytest.mark.gpu
@@ -124,6 +123,63 @@ def test_kernel_matches_plain_version(cuda, case):
     assert y.dtype == dtype and y.shape == x.shape and h_final.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), atol=Y_TOL[dtype], rtol=Y_TOL[dtype])
     torch.testing.assert_close(h_final, h_ref, atol=H_TOL, rtol=H_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,bc_dtype", [(torch.float32, torch.float32),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+def test_cuda_core_route_runs_128_cubed(cuda, x_dtype, bc_dtype):
+    """chunk = P = N = 128 on the CUDA-core route: 276 KB as one block, so
+    the head dim is split over two blocks of 216 KB; within the reference's
+    bars of the plain version."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd.ref import ssd_reference
+
+    assert K.route(x_dtype, bc_dtype, 128, 128, 128) == "cuda_cores"
+    assert K.cc_p_block(128, 128, 128) == 64
+    x, dt, a, bm, cm = inputs(2, 512, 4, 128, 128, x_dtype, cuda, seed=7, bc_dtype=bc_dtype)
+    before = K.launches_by_route["cuda_cores"]
+    y, h_final = K.ssd_cuda(x, dt, a, bm, cm, 128)
+    torch.cuda.synchronize()
+    assert K.launches_by_route["cuda_cores"] == before + 1
+    y_ref, h_ref = ssd_reference(x, dt, a, bm, cm, chunk=128)
+    tol = Y_TOL[x_dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_final, h_ref, atol=H_TOL, rtol=H_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,x_dtype,bc_dtype,p_block", [
+    ((2, 512, 4, 128, 128, 64), torch.float32, torch.float32, 64),
+    ((2, 512, 4, 128, 128, 64), torch.float32, torch.float32, 48),
+    ((1, 256, 2, 64, 128, 128), torch.float32, torch.bfloat16, 32),
+    ((2, 256, 4, 128, 64, 128), torch.bfloat16, torch.float32, 64),
+])
+def test_split_instance_equals_whole_bitwise(cuda, shape, x_dtype, bc_dtype, p_block):
+    """Where the whole instance fits, splitting its head dim across blocks
+    changes no bit of y or h (each depends on its own x column alone)."""
+    from repro_torch.kernels.ssd import kernel as K
+
+    b, s, h, p, n, q = shape
+    assert K.cc_smem_bytes(q, p, n) <= K.SMEM_LIMIT
+    x, dt, a, bm, cm = inputs(b, s, h, p, n, x_dtype, cuda, seed=p_block, bc_dtype=bc_dtype)
+    whole = K.ssd_cuda(x, dt, a, bm, cm, q, p_block=p)
+    parts = K.ssd_cuda(x, dt, a, bm, cm, q, p_block=p_block)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[0], parts[0]) and torch.equal(whole[1], parts[1])
+
+
+@pytest.mark.gpu
+def test_smem_sizing_matches_the_library(cuda):
+    """The Python sizing function is the library's own sum."""
+    from repro_torch.kernels.ssd import kernel as K
+
+    lib = K._LIB.get()
+    for q in (1, 16, 64, 96, 128):
+        for p in (1, 32, 64, 128):
+            for n in (1, 8, 64, 128):
+                assert lib.ssd_smem_bytes(q, p, n) == K.cc_smem_bytes(q, p, n), (q, p, n)
 
 
 @pytest.mark.gpu

@@ -220,3 +220,26 @@ def test_kernel_reads_rule():
     assert not K.kernel_reads(t[..., :256].view(2, 64, 4, 64).transpose(2, 3))  # last dim strided
     assert not K.kernel_reads(torch.zeros(2, 64, 129, dtype=torch.bfloat16)[..., :128])  # row of 258 bytes
     assert K.kernel_reads(torch.zeros(1, 64, 129, dtype=torch.bfloat16)[:, :1, :128])  # size-1 dims
+
+
+def test_cuda_core_route_fits_every_admitted_shape():
+    """Every (chunk, P, N) <= 128 that ``ssd_cuda`` admits gets a block size
+    on the CUDA-core route that fits an H100 block's 227 KB, by the route's
+    own sizing function (the library's ``ssd_smem_bytes`` sum, mirrored in
+    Python); the whole instance wherever it fits, and at chunk = P = N = 128
+    (276 KB whole) two blocks of 64 head-dim columns, 216,448 bytes each."""
+    from repro_torch.kernels.ssd.kernel import MAX_DIM, SMEM_LIMIT, cc_p_block, cc_smem_bytes
+
+    assert SMEM_LIMIT == 232448
+    assert cc_smem_bytes(128, 128, 128) == 282240
+    assert cc_p_block(128, 128, 128) == 64 and cc_smem_bytes(128, 64, 128) == 216448
+    split = 0
+    for q in range(1, MAX_DIM + 1):
+        for n in range(1, MAX_DIM + 1):
+            for p in range(1, MAX_DIM + 1):
+                pb = cc_p_block(q, p, n)
+                assert 0 < pb <= p and cc_smem_bytes(q, pb, n) <= SMEM_LIMIT, (q, p, n)
+                if pb < p:
+                    split += 1
+                    assert cc_smem_bytes(q, p, n) > SMEM_LIMIT, (q, p, n)
+    assert split > 0
