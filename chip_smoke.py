@@ -430,10 +430,26 @@ def same_block(a, b, chains=None) -> bool:
             and all(np.array_equal(x[idx], y[idx]) for x, y in zip(a.carry, b.carry)))
 
 
+def carry_errors(want, got) -> tuple:
+    """The worst relative error over two carries' float leaves, and the
+    integer leaves that differ."""
+    import numpy as np
+
+    worst, differ = 0.0, []
+    for name, a, b in zip(want._fields, want, got):
+        if np.issubdtype(a.dtype, np.floating):
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            if a.size:
+                worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12))))
+        elif not np.array_equal(a, b):
+            differ.append(name)
+    return worst, differ
+
+
 def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
     """Phases ``chain`` and ``chain_explore``: the device chain block on
     ar_complex (farsi menu, alloc on) through the phase-sim kernel. Returns
-    the kernel launches of each path."""
+    the kernel launches that each path's run made."""
     import contextlib
 
     import numpy as np
@@ -443,6 +459,7 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
         DeviceChainRunner, Explorer, ExplorerConfig, ar_complex, distance, prng,
         random_single_noc_designs, simulate,
     )
+    from repro_torch.core.device_explore import block_draws
     from repro_torch.kernels.phase_sim import kernel as K
 
     g = ar_complex()
@@ -457,12 +474,12 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
         walls, launches = [], []
         for _ in range(CHAIN_BLOCKS):
             torch.cuda.synchronize()
-            n0 = K.phase_sim_cuda.launches
+            K.phase_sim_cuda.launches = 0
             t1 = time.perf_counter()
             res = runner.run_chains(design, bud, r=r, k=CHAIN_K, **kw)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
-            launches.append(K.phase_sim_cuda.launches - n0)
+            launches.append(K.phase_sim_cuda.launches)
         blocks[r] = res
         wall = float(np.median(walls))
         per_r.append(dict(r=r, k=CHAIN_K, wall_s=wall, walls_s=walls,
@@ -471,21 +488,19 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
         if any(n != CHAIN_K for n in launches):
             fail("chain", f"a block of K = {CHAIN_K} did not launch the kernel K times", per_r=per_r)
     # where a step's time goes: device kernels per step and the busy share
-    # of one R = 16 block, and the host cost of the step's three threefry
-    # draws (split, the categorical's bits, the accept's uniform)
+    # of one R = 16 block, and the host cost of a block's threefry draws (K
+    # key splits, then the K steps' Gumbel noise and accept uniforms in one
+    # batched call each) per step
     runner.loop_guard = contextlib.nullcontext  # the profiler synchronises
     prof = device_profile(lambda: runner.run_chains(design, bud, r=16, k=CHAIN_K, **kw))
     runner.loop_guard = sync_errors()
     keys = prng.fold_in(prng.prng_key(1), torch.arange(16)).cuda()
-    logits = torch.zeros((16, blocks[16].n_moves), device="cuda")
 
     def draws():
-        kk = prng.split(keys, 3)
-        prng.categorical(kk[:, 1], logits)
-        prng.uniform(kk[:, 2])
+        block_draws(keys, CHAIN_K, blocks[16].n_moves)
 
     draw_prof = device_profile(draws)
-    draw_us = wall_ms(draws, 200) * 1e3
+    draw_us = wall_ms(draws, 20) * 1e3 / CHAIN_K
     host = runner.run_chains_host(design, bud, r=1, n_steps=CHAIN_K, **kw)
     if not same_block(blocks[1], host):
         fail("chain", "the fused R = 1 block differs from the host loop", per_r=per_r)
@@ -495,17 +510,22 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
     card4 = runner.run_chains(design, bud, r=4, k=16, **kw)
     cpu_fit = float(np.max(np.abs(cpu.fit_trace.astype(np.float64) - card4.fit_trace)
                            / np.maximum(np.abs(cpu.fit_trace), 1e-12)))
+    cpu_carry, carry_differ = carry_errors(cpu.carry, card4.carry)
     if not all(cpu.seq(i) == card4.seq(i) for i in range(4)):
         fail("chain", "the block on the card and on the CPU sampled different sequences",
              fit_trace_rel_err=cpu_fit)
+    if cpu_fit > REL_TOL or cpu_carry > REL_TOL or carry_differ:
+        fail("chain", "the block on the card priced off the CPU's", fit_trace_rel_err=cpu_fit,
+             carry_rel_err=cpu_carry, integer_leaves_differ=carry_differ)
     emit("chain", ok=True, graph="ar_complex", menu="farsi", alloc=True, per_r=per_r,
          host_loop_wall_s=host.wall_s, host_loop_steps_per_s=CHAIN_K / host.wall_s,
          fused_equals_host_loop=True, chains_equal_r16_r256=list(CHAIN_SAME),
          cuda_equals_cpu_sequences=True, cpu_vs_cuda_fit_trace_rel_err=cpu_fit,
+         cpu_vs_cuda_carry_rel_err=cpu_carry,
          profile_r16={"wall_ms": prof["wall_ms"], "kernels_per_step": prof["kernels"] / CHAIN_K,
                       "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
                       "top": prof["top"]},
-         draws_per_step={"host_us": draw_us, "kernels": draw_prof["kernels"]},
+         draws_per_step={"host_us": draw_us, "kernels": draw_prof["kernels"] / CHAIN_K},
          n_compiles=runner.n_compiles, sync_debug_mode="error", card=card,
          seconds=time.perf_counter() - t0)
 
@@ -539,7 +559,8 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
     if rel > REL_TOL:
         fail("chain_explore", "best design re-priced off the search's fitness", **summary)
     emit("chain_explore", ok=True, **summary)
-    return {"chain": CHAIN_K, "chain_explore": explore_launches}
+    return {"chain": {f"R={p['r']}": p["launches_per_block"][-1] for p in per_r},
+            "chain_explore": explore_launches}
 
 
 # ---- the serving path and its flash-attention kernel ---------------------------
@@ -1587,7 +1608,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/phase_sim/csrc/phase_sim.cu",
         "replaces": "src/repro/kernels/phase_sim/kernel.py:54",
         "launches": main_launches,
-        # each path's own count: a chain block launches once per iteration
+        # each path's own count, zeroed just before its run: the last timed
+        # chain block at each R (one launch per iteration), then run_chains
         "launches_by_path": {"main_path": main_launches, "chain_block": chain_launches["chain"],
                              "chain_explore": chain_launches["chain_explore"]},
         "max_abs_err": worst_abs,

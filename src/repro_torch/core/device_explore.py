@@ -533,6 +533,25 @@ def carry_to_host(carry: ChainCarry) -> ChainCarry:
     return ChainCarry(*leaves)
 
 
+def block_draws(key: torch.Tensor, k: int, n_moves: int):
+    """The random draws of K iterations from the (R, 2) chain keys: each
+    iteration splits its key three ways (the next key, the move's, the
+    accept's), as the reference's step does. The draws depend on the key
+    sequence alone, never on the carry, so only the split runs iteration by
+    iteration; the Gumbel noise of the K categorical draws and the K accept
+    uniforms are one batched call each, from the same random bits as draws
+    made iteration by iteration.
+    Returns the key after K splits, the (K, R, M) noise and the (K, R)
+    uniforms."""
+    k_move, k_acc = [], []
+    for _ in range(k):
+        keys = prng.split(key, 3)
+        key = keys[:, 0]
+        k_move.append(keys[:, 1])
+        k_acc.append(keys[:, 2])
+    return key, prng.gumbel(torch.stack(k_move), (n_moves,)), prng.uniform(torch.stack(k_acc))
+
+
 class _ChainBlock:
     """One (R, K) block shape: K iterations of sample → apply → re-price →
     accept over R chains, on the device of the carry it is given. Built once
@@ -641,13 +660,12 @@ class _ChainBlock:
         return c._replace(**s)
 
     def _step(self, c: ChainCarry, tab: Dict[str, torch.Tensor],
-              rows_static: Dict[str, torch.Tensor], temp_pos, temp_den):
-        r = self.r
-        cap_pe, cap_mem = self.cap["pe"], self.cap["mem"]
+              rows_static: Dict[str, torch.Tensor], temp_pos, temp_den,
+              noise: torch.Tensor, u: torch.Tensor):
+        """One iteration; ``noise`` (R, M) and ``u`` (R,) are its Gumbel
+        noise and accept uniforms from :func:`block_draws`."""
         taboo = (c.taboo - 1).clamp(min=0)
-        keys = prng.split(c.key, 3)
-        key, k_move, k_acc = keys[:, 0], keys[:, 1], keys[:, 2]
-        c = c._replace(key=key, taboo=taboo)
+        c = c._replace(taboo=taboo)
         # ---- validity over the packed table ------------------------------
         kind, arg, dest = tab["kind"], tab["arg"], tab["dest"]
         a_task, a_pe, a_mem = tab["a_task"], tab["a_pe"], tab["a_mem"]
@@ -694,7 +712,7 @@ class _ChainBlock:
         else:
             logw = tab["zeros"]
         logits = torch.where(valid, logw, -1e30)
-        m = prng.categorical(k_move, logits)  # (R,) int64
+        m = torch.argmax(noise + logits, -1)  # prng.categorical, noise drawn ahead
         # ---- apply + price the candidate platforms ------------------------
         cand = self._apply_move(c, kind[m], arg[m], dest[m])
         rows = dict(rows_static)
@@ -708,7 +726,6 @@ class _ChainBlock:
         # SA accept, the f32 mirror of PolicyBase.accept; chains whose whole
         # menu was masked (all-taboo / degenerate platform) force-reject and
         # leave every state leaf untouched
-        u = prng.uniform(k_acc)
         ok = torch.isfinite(f_new) & (
             (f_new < c.fitness)
             | (temp_pos & (u < torch.exp(-(f_new - c.fitness) / temp_den)))
@@ -768,10 +785,12 @@ class _ChainBlock:
         temp_pos = temp > 0
         temp_den = torch.clamp(temp, min=float(np.float32(1e-9)))
         mv, acc, ft = [], [], []
-        c = carry
         with loop_guard():
+            key, noise, u = block_draws(carry.key, k, n_moves)
+            c = carry._replace(key=key)
             for s in range(k):
-                c, m, ok, fit = self._step(c, tab, rows_static, temp_pos[s], temp_den[s])
+                c, m, ok, fit = self._step(c, tab, rows_static, temp_pos[s], temp_den[s],
+                                           noise[s], u[s])
                 mv.append(m)
                 acc.append(ok)
                 ft.append(fit)
@@ -807,7 +826,7 @@ class DeviceChainRunner:
         # turns host synchronisation into an error)
         self.loop_guard = contextlib.nullcontext
         self.n_compiles = 0
-        self.n_fallback = 0
+        self.n_fallback = 0  # always 0: kept so the stats match the reference's
         self.n_dispatches = 0
         self.n_chain_steps = 0
 

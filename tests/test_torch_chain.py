@@ -351,7 +351,7 @@ def test_block_loop_makes_no_host_sync():
     from repro_torch.kernels.phase_sim import chain, kernel, ops
 
     srcs = [inspect.getsource(f) for f in (
-        PD._ChainBlock._step, PD._ChainBlock._apply_move, prng.threefry2x32,
+        PD._ChainBlock._step, PD._ChainBlock._apply_move, PD.block_draws, prng.threefry2x32,
         prng.split, prng.random_bits, prng.uniform, prng.gumbel, prng.categorical,
         chain.resimulate_chains, ops.phase_sim, ops.phase_sim_rows, ops.unpack,
         ops.pack_nocs, kernel.phase_sim_cuda,

@@ -116,6 +116,12 @@ def test_card_samples_the_cpu_sequences(cuda, graph):
         assert on_card.seq(i) == on_cpu.seq(i), i
     rel = np.abs(on_card.fit_trace.astype(np.float64) - on_cpu.fit_trace) / np.abs(on_cpu.fit_trace)
     assert rel.max() <= REL_TOL
+    for name, a, b in zip(on_cpu.carry._fields, on_cpu.carry, on_card.carry):
+        if np.issubdtype(a.dtype, np.floating):
+            err = np.abs(b.astype(np.float64) - a) / np.maximum(np.abs(a), 1e-12)
+            assert err.max() <= REL_TOL, name
+        else:
+            assert np.array_equal(a, b), name
 
 
 @pytest.mark.gpu
