@@ -41,6 +41,33 @@ through the CUDA SSD and RMSNorm kernels. Phases, each printing one JSON line:
                dispatches, cached blocks, kernel launches (one per
                iteration plus the winner's decode), beside main_path's
                sims/s; the best design re-priced by the scalar simulator
+  6c. serve_dse  DseService on the card with a DesignStore, ar_complex,
+               calibrated budget: the reference's repeated scenario, 64
+               sessions (16 replicas × farsi, naive_sa, bottleneck,
+               locality; seed rep % 4; 60 iterations),
+               32 up front and 32 joining after 5 ticks, and 2 chain-batched
+               sessions (chain_r 16, chain_k 32, chain_alloc): ticks, wall,
+               evals/s, p50/p95 session latency, cache counters and hit rate
+               (> 0.3), rows per shared dispatch; phase-sim launches (zeroed
+               just before, read just after) equal to the dispatches that
+               reached the kernel (candidate dispatches that sent a row to
+               the card, plus K per chain block, counted apart); no failure,
+               dispatch fault, degradation, fallback or non-finite row;
+               replicas bit for bit; three sessions re-run alone on a fresh
+               service bit for bit; every best design re-priced by the
+               scalar simulator within 1e-5; the device's busy share of the
+               same run under the profiler; then the same 64 host-loop
+               sessions with 64 distinct seeds (no repeats, no chain
+               session), with the same numbers and checks bar the replicas
+  6d. serve_chaos  8 sessions under FaultInjector(seed=7) at the reference
+               chaos sweep's combined rates, twice: identical schedules,
+               counters and results; the sessions the injector never touched
+               equal a fault-free run bit for bit; nothing escapes run();
+               a phase-sim launch made to raise fails its session with
+               DispatchFailed, nothing degraded to the CPU fallback
+  6e. campaign Campaign on audio and ar_complex, seeds 0-1, farsi, naive_sa
+               and bottleneck, 60 iterations, with and without the
+               DesignStore: runs identical; wall, dispatches, launches, cache
   7. flash_build   nvcc build of the flash kernel (started in parallel with
                    the phase-sim build; registers, shared memory, spills)
   8. flash_parity  flash kernel vs its plain version on the card: bf16 and
@@ -107,7 +134,8 @@ through the CUDA SSD and RMSNorm kernels. Phases, each printing one JSON line:
                timed as serve is; then the plain path on the same weights (2
                layers: held to the reference's bar; 48 layers: reported)
  17. kernels   one line per ported kernel (launches, error, times, bound;
-               flash and SSD also their launches per route)
+               flash and SSD also their launches per route; phase-sim its
+               launches per path, the serve phases' among them)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object.
@@ -561,6 +589,373 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
     emit("chain_explore", ok=True, **summary)
     return {"chain": {f"R={p['r']}": p["launches_per_block"][-1] for p in per_r},
             "chain_explore": explore_launches}
+
+
+# ---- the serve layer: DseService, the design cache, chaos, Campaign ----------------
+SERVE_POLICIES = ("farsi", "naive_sa", "bottleneck", "locality")
+SERVE_REPLICAS = 16  # × the four policies: 64 host-loop sessions, seed rep % 4
+SERVE_ITERATIONS = 60
+SERVE_LATE_AFTER = 5  # ticks before the second half of the sessions joins
+SERVE_CHAINS = (1, 2)  # seeds of the two chain-batched sessions (chain_r 16, chain_k 32)
+SERVE_SOLO = ("r0.farsi", "r9.naive_sa", "chain.s1")  # re-run alone: up front, late, chain
+CHAOS = dict(dispatch_fault_rate=0.1, nan_row_rate=0.05, straggler_rate=0.05,
+             straggler_delay_s=0.001, crash_rate=0.02)  # tests/test_serve_faults.py's combined
+# the reference chaos sweep's 12 iterations: longer searches draw a poisoned
+# row or a crash for every session, and none is left to hold to the
+# fault-free run (seed 7 leaves one of the eight untouched)
+CHAOS_SESSIONS, CHAOS_ITERATIONS = 8, 12
+CAMPAIGN_POLICIES = ("farsi", "naive_sa", "bottleneck")
+CAMPAIGN_SEEDS = (0, 1)
+
+
+def tally_dispatches(backend, tally: dict) -> None:
+    """Count, apart from the kernel's own launch counter, the dispatches of
+    ``backend`` that reach the kernel: a candidate dispatch that sends at
+    least one row to the card (its ``n_batched`` grows; rows the store or a
+    same-dispatch alias serves send none) is one launch, and a chain block of
+    K iterations is K launches."""
+    evaluate, run_chains = backend.evaluate_candidates, backend.run_chains
+
+    def counted_evaluate(cands):
+        before = backend.stats().n_batched
+        out = evaluate(cands)
+        rows = backend.stats().n_batched - before
+        tally["dispatches"] += rows > 0
+        tally["rows"] += rows
+        tally["candidates"] += len(cands)
+        tally["calls"] += 1
+        return out
+
+    def counted_chains(req):
+        out = run_chains(req)
+        tally["chain_launches"] += req.k
+        return out
+
+    backend.evaluate_candidates = counted_evaluate
+    backend.run_chains = counted_chains
+
+
+def new_tally() -> dict:
+    return dict(calls=0, dispatches=0, rows=0, candidates=0, chain_launches=0)
+
+
+def moves(res) -> list:
+    return [(h["iteration"], h["move"], bool(h["accepted"]), h["fitness"]) for h in res.history]
+
+
+def serve_sessions(svc, g, bud, distinct: bool = False):
+    """Submit phase serve_dse's sessions, the second half of the host-loop
+    sessions after ``SERVE_LATE_AFTER`` ticks: the replicated scenario's 66
+    (seed rep % 4, and the two chain-batched sessions), or with ``distinct``
+    64 host-loop sessions of 64 distinct seeds (no session repeats another)."""
+    from repro_torch.core import ExplorerConfig
+
+    def host(rep, pol):
+        seed = rep * len(SERVE_POLICIES) + SERVE_POLICIES.index(pol) if distinct else rep % 4
+        return svc.submit(f"r{rep}.{pol}", g, bud, ExplorerConfig(
+            policy=pol, seed=seed, max_iterations=SERVE_ITERATIONS))
+
+    half = SERVE_REPLICAS // 2
+    handles = [host(rep, pol) for rep in range(half) for pol in SERVE_POLICIES]
+    handles += [] if distinct else [svc.submit(f"chain.s{seed}", g, bud, ExplorerConfig(
+        policy="farsi", seed=seed, max_iterations=SERVE_ITERATIONS, chain_r=16,
+        chain_k=CHAIN_K, chain_alloc=True)) for seed in SERVE_CHAINS]
+    for _ in range(SERVE_LATE_AFTER):
+        svc.step()
+    handles += [host(rep, pol) for rep in range(half, SERVE_REPLICAS) for pol in SERVE_POLICIES]
+    return handles
+
+
+def serve_counters(st) -> dict:
+    return {k: getattr(st, k) for k in (
+        "n_failed", "n_dispatch_faults", "n_degraded", "n_fallback", "n_nonfinite_rejected",
+        "n_retries", "n_bisects", "n_restarts", "n_deadline_exceeded", "n_straggler_ticks",
+        "n_degraded_evals")}
+
+
+def serve_run(db, g, bud, distinct: bool):
+    """One run of ``serve_sessions`` on a fresh service with a DesignStore:
+    its handles, stats, backend, the dispatches counted apart, and the
+    kernel's launches (zeroed just before the run, read just after)."""
+    import torch
+
+    from repro_torch.kernels.phase_sim import kernel as K
+    from repro_torch.serve import DesignStore, DseService
+
+    svc = DseService(db, store=DesignStore())
+    tally = new_tally()
+    tally_dispatches(svc.scheduler.backend_for(g), tally)
+    torch.cuda.synchronize()
+    K.phase_sim_cuda.launches = 0
+    t1 = time.perf_counter()
+    handles = serve_sessions(svc, g, bud, distinct=distinct)
+    st = svc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    (backend,) = svc.scheduler.backends().values()
+    return svc, handles, st, backend, tally, K.phase_sim_cuda.launches, wall
+
+
+def serve_summary(st, backend, tally, launches, wall, main_sims_per_s) -> dict:
+    """A serve run's numbers: throughput, latency, cache, dispatch shape,
+    launches beside the dispatches that reached the kernel, counters."""
+    bst = backend.stats()
+    return dict(
+        sessions=st.n_sessions, done=st.n_done, iterations=SERVE_ITERATIONS, ticks=st.n_ticks,
+        wall_s=wall, service_wall_s=st.wall_s, n_evals=st.n_evals,
+        evals_per_s=st.n_evals / wall, main_path_sims_per_s=main_sims_per_s,
+        latency_p50_s=st.latency_percentile(50), latency_p95_s=st.latency_percentile(95),
+        cache_hits=st.cache_hits, cache_misses=st.cache_misses,
+        cache_bypasses=st.cache_bypasses, cache_evictions=st.cache_evictions,
+        cache_hit_rate=st.cache_hit_rate,
+        shared_dispatches=tally["dispatches"], rows_dispatched=tally["rows"],
+        rows_per_shared_dispatch=tally["rows"] / max(tally["dispatches"], 1),
+        candidates_per_call=tally["candidates"] / max(tally["calls"], 1),
+        chain_block_launches=tally["chain_launches"], launches=launches,
+        expected_launches=tally["dispatches"] + tally["chain_launches"],
+        backend_dispatches=bst.n_dispatches, backend_device=str(backend.device),
+        encode_s=bst.encode_s, dispatch_s=bst.dispatch_s, decode_s=bst.decode_s,
+        backend_wall_s=bst.wall_s, **serve_counters(st),
+    )
+
+
+def serve_faults(summary: dict, handles, st, backend, tally) -> str | None:
+    """What a fault-free serve run must not show, or None."""
+    if backend.device.type != "cuda":
+        return "the service did not price on the card"
+    if st.n_done != len(handles) or any(not h.done for h in handles):
+        return "not every session completed"
+    if any(summary[k] for k in ("n_failed", "n_dispatch_faults", "n_degraded", "n_fallback",
+                                "n_nonfinite_rejected")):
+        return "a fault-free run reported a fault, degradation or fallback"
+    if summary["launches"] != summary["expected_launches"] or tally["dispatches"] == 0:
+        return "launches differ from the dispatches that reached the kernel"
+    return None
+
+
+def worst_repriced(results, g, db, bud) -> float:
+    """The largest relative gap between a best design re-priced by the scalar
+    simulator and its session's last fitness."""
+    from repro_torch.core import distance, simulate
+
+    worst = 0.0
+    for r in results:
+        fit = distance(simulate(r.best_design, g, db), bud).fitness(0.05)
+        worst = max(worst, abs(fit - r.history[-1]["fitness"]) / max(abs(fit), 1e-12))
+    return worst
+
+
+def serve_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
+    """Phases ``serve_dse``, ``serve_chaos`` and ``campaign``: the serve
+    layer on the card, every shared dispatch through the phase-sim kernel.
+    Returns the kernel launches that each phase's run made."""
+    import torch
+
+    from repro_torch.core import Campaign, ExplorerConfig, ar_complex, audio
+    from repro_torch.kernels.phase_sim import kernel as K
+    from repro_torch.serve import DesignStore, DispatchFailed, DseService, FaultInjector
+
+    # ---- serve_dse: 64 host-loop sessions (half join mid-flight) + 2 chain ---
+    g = ar_complex()
+    t0 = time.perf_counter()
+    svc, handles, st, backend, tally, launches, wall = serve_run(db, g, bud, distinct=False)
+    summary = dict(graph="ar_complex", scenario="replicated: 16 replicas of 4 (policy, seed)",
+                   chain_sessions=len(SERVE_CHAINS),
+                   late_joiners=SERVE_REPLICAS // 2 * len(SERVE_POLICIES),
+                   **serve_summary(st, backend, tally, launches, wall, main_sims_per_s),
+                   launches_counted_as="one per candidate dispatch that sent at least one row "
+                                       "to the card (rows served by the store or aliased send "
+                                       "none) plus K per chain block; counted by wrapping the "
+                                       "backend's evaluate_candidates and run_chains, apart "
+                                       "from the kernel's counter",
+                   card=card)
+    why = serve_faults(summary, handles, st, backend, tally)
+    if why:
+        fail("serve_dse", why, **summary)
+    if st.cache_hit_rate <= 0.3:
+        fail("serve_dse", "cache hit rate at or below 0.3", **summary)
+    by_name = {h.name: h.result for h in handles}
+    for rep in range(4):
+        for pol in SERVE_POLICIES:
+            runs = [by_name[f"r{r}.{pol}"] for r in range(rep, SERVE_REPLICAS, 4)]
+            if any(r.best_distance.city_block() != runs[0].best_distance.city_block()
+                   or moves(r) != moves(runs[0]) for r in runs):
+                fail("serve_dse", f"replicas of {pol} seed {rep} ended apart", **summary)
+    worst = worst_repriced(by_name.values(), g, db, bud)
+    summary["repriced_fitness_max_rel_err"] = worst
+    if worst > REL_TOL:
+        fail("serve_dse", "a best design re-priced off its session's fitness", **summary)
+    solo = {}
+    for name in SERVE_SOLO:
+        alone = DseService(db)
+        req = svc._sessions[name].request
+        h = alone.submit(name, g, bud, req.config)
+        alone.run()
+        a, b = h.result, by_name[name]
+        solo[name] = moves(a) == moves(b) and (
+            a.best_distance.city_block() == b.best_distance.city_block())
+    summary["solo_reruns_identical"] = solo
+    if not all(solo.values()):
+        fail("serve_dse", "a session re-run alone walked other moves", **summary)
+    # the device's busy share: the same sessions again, under the profiler
+    prof_svc = DseService(db, store=DesignStore())
+    prof = device_profile(lambda: (serve_sessions(prof_svc, g, bud), prof_svc.run()))
+    summary["profile"] = {k: prof[k] for k in ("wall_ms", "kernels", "busy_ms", "busy_share",
+                                               "top")}
+    # the same service shape with 64 distinct seeds: no session repeats
+    # another, so the cache serves only what searches revisit, and the
+    # dispatches carry what a shared service of distinct searches sends
+    _, d_handles, d_st, d_backend, d_tally, d_launches, d_wall = serve_run(
+        db, g, bud, distinct=True)
+    distinct = dict(scenario="64 distinct seeds, no chain session",
+                    **serve_summary(d_st, d_backend, d_tally, d_launches, d_wall,
+                                    main_sims_per_s))
+    distinct["repriced_fitness_max_rel_err"] = worst_repriced(
+        [h.result for h in d_handles if h.done], g, db, bud)
+    summary["distinct_seeds"] = distinct
+    why = serve_faults(distinct, d_handles, d_st, d_backend, d_tally)
+    if why:
+        fail("serve_dse", f"distinct seeds: {why}", **summary)
+    if distinct["repriced_fitness_max_rel_err"] > REL_TOL:
+        fail("serve_dse", "distinct seeds: a best design re-priced off its session's fitness",
+             **summary)
+    summary["seconds"] = time.perf_counter() - t0
+    emit("serve_dse", ok=True, **summary)
+    serve_launches = {"replicated": launches, "distinct_seeds": d_launches}
+
+    # ---- serve_chaos: seeded faults, twice, against a fault-free run -------------
+    t0 = time.perf_counter()
+
+    def chaos(faults):
+        svc = DseService(db, faults=faults)
+        tally = new_tally()
+        tally_dispatches(svc.scheduler.backend_for(g), tally)
+        hs = [svc.submit(f"s{i}", g, bud, ExplorerConfig(
+            policy=SERVE_POLICIES[i % 4], seed=i, max_iterations=CHAOS_ITERATIONS),
+            max_restarts=2) for i in range(CHAOS_SESSIONS)]
+        try:
+            st = svc.run()
+        except Exception as exc:  # the guarantee under test: nothing escapes run()
+            fail("serve_chaos", f"an exception escaped DseService.run(): {exc!r}")
+        out = {h.name: (h.state, h.degraded, type(h.error).__name__,
+                        moves(h.result) if h.done else None,
+                        h.result.best_distance.city_block() if h.done else None) for h in hs}
+        return svc, st, out, tally
+
+    torch.cuda.synchronize()
+    K.phase_sim_cuda.launches = 0
+    fi_a = FaultInjector(seed=7, **CHAOS)
+    svc_a, st_a, out_a, tally_a = chaos(fi_a)
+    torch.cuda.synchronize()
+    chaos_launches = K.phase_sim_cuda.launches
+    fi_b = FaultInjector(seed=7, **CHAOS)
+    _, st_b, out_b, _ = chaos(fi_b)
+    _, st_0, out_0, _ = chaos(None)
+    affected = fi_a.affected_sessions() | set(svc_a.failures())
+    affected |= {n for n, s in svc_a._sessions.items() if s.degraded}
+    untouched = [n for n in out_0 if n not in affected]
+    counters = serve_counters(st_a)
+    timed_counters = ("n_straggler_ticks",)  # flagged against wall-clock EMAs
+    replayed = {k: v for k, v in counters.items() if k not in timed_counters}
+    summary = dict(
+        graph="ar_complex", sessions=CHAOS_SESSIONS, iterations=CHAOS_ITERATIONS, seed=7,
+        rates=CHAOS, injected=fi_a.counts(), schedule_len=len(fi_a.schedule),
+        done=st_a.n_done, ticks=st_a.n_ticks, **counters, untouched=untouched,
+        affected=sorted(affected), launches=chaos_launches,
+        expected_launches=tally_a["dispatches"] + tally_a["chain_launches"], card=card,
+    )
+    if fi_a.schedule != fi_b.schedule or out_a != out_b or replayed != {
+            k: v for k, v in serve_counters(st_b).items() if k not in timed_counters}:
+        fail("serve_chaos", "two runs under one injector seed differ", **summary)
+    if any(out_a[n] != out_0[n] for n in untouched) or not untouched:
+        fail("serve_chaos", "a session the injector never touched differs from the "
+             "fault-free run", **summary)
+    if st_a.n_dispatch_faults != fi_a.counts()["dispatch"]:
+        fail("serve_chaos", "dispatch faults beside the injected ones", **summary)
+    if chaos_launches != summary["expected_launches"]:
+        fail("serve_chaos", "launches differ from the dispatches that reached the kernel",
+             **summary)
+    if st_0.n_dispatch_faults or st_0.n_degraded or st_0.n_failed or st_0.n_fallback:
+        fail("serve_chaos", "the fault-free run reported a fault", **serve_counters(st_0))
+    # a real fault of the kernel on the card (its launch raising) fails the
+    # session with the fault on __cause__: the CPU fallback must not price it
+    import repro_torch.kernels.phase_sim.ops as ops
+
+    launch = ops.phase_sim_rows
+
+    def broken(*a, **k):
+        raise RuntimeError("phase-sim launch failed")
+
+    ops.phase_sim_rows = broken
+    try:
+        svc_f = DseService(db)
+        h_f = svc_f.submit("broken", g, bud, ExplorerConfig(
+            seed=0, max_iterations=CHAOS_ITERATIONS))
+        st_f = svc_f.run()
+    finally:
+        ops.phase_sim_rows = launch
+    summary["card_fault"] = dict(
+        failed=h_f.failed, degraded=h_f.degraded, error=type(h_f.error).__name__,
+        cause=repr(getattr(h_f.error, "__cause__", None)), n_degraded=st_f.n_degraded,
+        n_degraded_evals=st_f.n_degraded_evals,
+        fallback_backends=len(svc_f.scheduler.fallback_backends()))
+    if not (h_f.failed and isinstance(h_f.error, DispatchFailed)
+            and isinstance(h_f.error.__cause__, RuntimeError) and st_f.n_degraded == 0
+            and not svc_f.scheduler.fallback_backends()):
+        fail("serve_chaos", "a kernel fault on the card did not fail its session", **summary)
+    summary["seconds"] = time.perf_counter() - t0
+    emit("serve_chaos", ok=True, **summary)
+
+    # ---- campaign: audio + ar_complex × seeds × policies, with and without the store --
+    t0 = time.perf_counter()
+    graphs = {"audio": audio(), "ar_complex": ar_complex()}
+
+    def campaign(store):
+        camp = Campaign(db, store=store)
+        tally = new_tally()
+        for gname, cg in graphs.items():
+            tally_dispatches(camp.backend_for(cg), tally)
+            for pol in CAMPAIGN_POLICIES:
+                for seed in CAMPAIGN_SEEDS:
+                    camp.add(f"{gname}.{pol}.s{seed}", cg, bud, ExplorerConfig(
+                        policy=pol, seed=seed, max_iterations=SERVE_ITERATIONS))
+        torch.cuda.synchronize()
+        K.phase_sim_cuda.launches = 0
+        res = camp.run()
+        torch.cuda.synchronize()
+        n = K.phase_sim_cuda.launches
+        agg = res.aggregate
+        return res, dict(
+            wall_s=res.wall_s, runs=len(res.runs), n_sims=agg["n_sims_total"],
+            dispatches=sum(b.n_dispatches for b in res.backend_stats.values()),
+            launches=n, expected_launches=tally["dispatches"] + tally["chain_launches"],
+            cache_hits=agg["cache_hits_total"], cache_misses=agg["cache_misses_total"],
+            cache_bypasses=agg["cache_bypass_total"], cache_hit_rate=agg["cache_hit_rate"],
+            converged=agg["n_converged"], best_distance_mean=agg["best_distance_mean"],
+            devices=sorted({str(b.device) for b in camp._scheduler.backends().values()}))
+
+    cached, with_store = campaign(DesignStore())
+    plain, without = campaign(None)
+    summary = dict(graphs=list(graphs), policies=list(CAMPAIGN_POLICIES),
+                   seeds=list(CAMPAIGN_SEEDS), iterations=SERVE_ITERATIONS,
+                   with_store=with_store, without_store=without, card=card)
+    if with_store["devices"] != ["cuda:0"] or without["devices"] != ["cuda:0"]:
+        fail("campaign", "the campaign did not price on the card", **summary)
+    for side in (with_store, without):
+        if side["launches"] != side["expected_launches"]:
+            fail("campaign", "launches differ from the dispatches that reached the kernel",
+                 **summary)
+    same = all(
+        moves(cached.runs[n]) == moves(r) and cached.runs[n].n_sims == r.n_sims
+        and cached.runs[n].best_distance.city_block() == r.best_distance.city_block()
+        for n, r in plain.runs.items())
+    if not same or list(cached.runs) != list(plain.runs):
+        fail("campaign", "runs with the store differ from runs without it", **summary)
+    summary["seconds"] = time.perf_counter() - t0
+    emit("campaign", ok=True, **summary)
+    return {"serve_dse": serve_launches, "serve_chaos": chaos_launches,
+            "campaign": {"with_store": with_store["launches"],
+                         "without_store": without["launches"]}}
 
 
 # ---- the serving path and its flash-attention kernel ---------------------------
@@ -1596,6 +1991,7 @@ def main() -> int:
     emit("golden", ok=True, cells=replayed)
 
     chain_launches = chain_phases(card, db, bud, summary["sims_per_s"])
+    serve_launches = serve_phases(card, db, bud, summary["sims_per_s"])
 
     flash = flash_phases(card, flash_build)
     ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
@@ -1611,7 +2007,8 @@ def main() -> int:
         # each path's own count, zeroed just before its run: the last timed
         # chain block at each R (one launch per iteration), then run_chains
         "launches_by_path": {"main_path": main_launches, "chain_block": chain_launches["chain"],
-                             "chain_explore": chain_launches["chain_explore"]},
+                             "chain_explore": chain_launches["chain_explore"],
+                             **serve_launches},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": ms,

@@ -55,6 +55,9 @@ from .workloads import (
     synthetic_family,
 )
 
+# last: the campaign's engine is the serve layer, which builds on this package
+from .campaign import Campaign, CampaignResult, RunSpec  # noqa: E402
+
 __all__ = [
     "AWARENESS_LEVELS",
     "BackendStats",
@@ -62,6 +65,8 @@ __all__ = [
     "BlockKind",
     "BottleneckRelaxation",
     "Budget",
+    "Campaign",
+    "CampaignResult",
     "Candidate",
     "ChainBlockResult",
     "ChainCarry",
@@ -85,6 +90,7 @@ __all__ = [
     "NaiveSA",
     "POLICIES",
     "PythonBackend",
+    "RunSpec",
     "Scenario",
     "SimHandle",
     "SimResult",

@@ -29,6 +29,10 @@ batch; the full ``SimResult`` (per-task finish/bottleneck/energy dicts) is
 reconstructed lazily on first ``result()`` — only the candidate the explorer
 accepts ever pays the decode.
 
+With a ``serve.DesignStore`` attached (:meth:`TorchBatchedBackend.attach_store`)
+a candidate whose encoding, workload and budget were priced before is served
+from the memoized row, bit-identically, without a dispatch.
+
 ``evaluate(designs)`` stays as the eager compatibility wrapper (it decodes
 everything). Simulation-count and wall-clock accounting live here, in
 ``BackendStats``.
@@ -85,10 +89,10 @@ class BackendStats:
     n_fallback: int = 0  # designs through the scalar Python path
     n_compiles: int = 0  # distinct padded shape keys (row buffers built)
     n_inflight_max: int = 0  # deepest concurrent-dispatch pipeline seen
-    # content-addressed evaluation cache counters (the serve layer's
-    # DesignStore: hits served from a memoized row, misses dispatched and
-    # registered, bypasses for scalar-fallback candidates). The store is not
-    # part of this package yet, so they stay zero.
+    # content-addressed evaluation cache counters (serve.DesignStore; zero
+    # unless a store is attached): hits served from a memoized row or a
+    # same-dispatch alias, misses dispatched and registered, bypasses for
+    # scalar-fallback candidates
     n_cache_hits: int = 0
     n_cache_misses: int = 0  # rows dispatched and registered in the store
     n_cache_bypass: int = 0
@@ -695,17 +699,51 @@ class _TorchBatch:
         return self.host()["fitness"]
 
 
+class _CachedBatch:
+    """Duck-typed one-row ``_TorchBatch`` over a memoized store row.
+
+    A `serve.DesignStore` hit serves a candidate from the host columns of an
+    earlier identical evaluation. Wrapping that row (leading axis 1) behind
+    the ``host()/fitness()`` batch interface lets the ordinary
+    ``_TorchHandle`` machinery — fitness, scalars, telemetry, lazy decode,
+    ``adopt_encoding`` — read it through the exact same code path as a fresh
+    dispatch, so a cache hit is bit-identical to the dispatch it memoized.
+    ``eds`` carries the *consumer's* encoding (computed anyway to derive the
+    cache key): the producer's encoding may map different block names onto
+    the same arrays, and adoption must stay keyed to the consumer's own
+    design."""
+
+    __slots__ = ("_row", "stats", "eds", "consumed")
+
+    def __init__(self, row: Dict[str, np.ndarray], stats: BackendStats, ed) -> None:
+        self._row = row
+        self.stats = stats
+        self.eds = [ed]
+        self.consumed = True  # nothing in flight: the row is already host-side
+
+    def host(self) -> Dict[str, np.ndarray]:
+        return self._row
+
+    def fitness(self) -> np.ndarray:
+        return self._row["fitness"]
+
+
 class _TorchHandle:
-    """Lazy handle into one row of a `_TorchBatch`."""
+    """Lazy handle into one row of a `_TorchBatch` (or a `_CachedBatch`)."""
 
-    __slots__ = ("_batch", "_j", "_cand", "_backend", "_res")
+    __slots__ = ("_batch", "_j", "_cand", "_backend", "_res", "_ed")
 
-    def __init__(self, batch: _TorchBatch, j: int, cand: Candidate, backend) -> None:
+    def __init__(self, batch: _TorchBatch, j: int, cand: Candidate, backend,
+                 ed=None) -> None:
         self._batch = batch
         self._j = j
         self._cand = cand
         self._backend = backend
         self._res: Optional[SimResult] = None
+        # adoption override: a row shared across candidates (same-dispatch
+        # cache alias) carries THIS consumer's encoding here — the row
+        # owner's `eds[j]` may map different block names to the same arrays
+        self._ed = ed
 
     @property
     def fitness(self) -> float:
@@ -805,6 +843,10 @@ class TorchBatchedBackend:
         self._shapes: set = set()
         self._stats = BackendStats()
         self._chains = None  # the DeviceChainRunner, built at first use
+        # content-addressed evaluation cache (serve.DesignStore) — opt-in
+        # via attach_store(); None keeps the uncached behaviour
+        self._store = None
+        self._wl_digest: Optional[bytes] = None
         # static per-task tables for host-side SimResult reconstruction:
         # totals are design-independent; only the block subtype scales energy
         names = self._enc.names
@@ -824,6 +866,26 @@ class TorchBatchedBackend:
 
     def stats(self) -> BackendStats:
         return self._stats
+
+    def attach_store(self, store) -> None:
+        """Attach a content-addressed evaluation cache (`serve.DesignStore`).
+        Every subsequent vectorizable candidate is keyed on
+        ``hash(EncodedDesign leaves, workload, budget)``: key hits are served
+        from the memoized row of an earlier identical evaluation (no device
+        row dispatched — bit-identical scalars, see ``_CachedBatch``),
+        duplicate keys *within* one batch alias a single dispatched row, and
+        every freshly dispatched row is registered for future sessions. The
+        store may be shared across backends/workloads (the workload digest
+        namespaces the keys)."""
+        self._store = store
+        self._wl_digest = store.workload_digest(self._enc) if store is not None else None
+
+    def _note_bypass(self) -> None:
+        """A candidate the cache cannot host (scalar fallback — no device
+        row to memoize). Counted only while a store is attached."""
+        if self._store is not None:
+            self._stats.n_cache_bypass += 1
+            self._store.note_bypass()
 
     def flush(self) -> None:
         """Drain the dispatch pipeline: block until every outstanding batch
@@ -888,7 +950,8 @@ class TorchBatchedBackend:
             return
         if len(self._adopted) > 512:  # bound design refs kept alive
             self._adopted.clear()
-        self._adopted[id(cand.base)] = (cand.base, handle._batch.eds[handle._j])
+        ed = handle._ed if handle._ed is not None else handle._batch.eds[handle._j]
+        self._adopted[id(cand.base)] = (cand.base, ed)
 
     def _track_inflight(self, batch: _TorchBatch) -> None:
         # in-flight = dispatched, not yet consumed by the host. Abandoned
@@ -925,6 +988,7 @@ class TorchBatchedBackend:
                     res = simulate(d, self.tdg, self.db)
                 results[i] = _ReadyHandle(res, _host_fitness(res, c), c, self.tdg)
                 self._stats.n_fallback += 1
+                self._note_bypass()
         if fast:
             self._evaluate_batch([cands[i] for i in fast], fast, results)
         self._stats.n_sims += len(cands)
@@ -952,6 +1016,15 @@ class TorchBatchedBackend:
         base_encs: Dict[int, EncodedDesign] = {}
         eds: List[EncodedDesign] = []
         keep: List[int] = []
+        # content-addressed cache bookkeeping (store attached): per-row cache
+        # keys to register after dispatch, same-dispatch alias rows, and the
+        # batch-local key → row map that dedupes identical candidates two
+        # co-batched sessions submit in one scheduler tick
+        store = self._store
+        row_keys: List[bytes] = []
+        aliases: List[tuple] = []  # (results index, dispatched row, Candidate, ed)
+        batch_rows: Dict[bytes, int] = {}
+        bud_digests: Dict[tuple, bytes] = {}
         for pos, c in enumerate(batch):
             key = id(c.base)
             try:
@@ -977,10 +1050,40 @@ class TorchBatchedBackend:
                     res, _host_fitness(res, c), c, self.tdg
                 )
                 self._stats.n_fallback += 1
+                self._note_bypass()
                 continue
+            if store is not None:
+                bkey = (id(c.budget), c.alpha)
+                bud_dig = bud_digests.get(bkey)
+                if bud_dig is None:
+                    bud_dig = bud_digests[bkey] = store.budget_digest(
+                        c.budget, c.alpha
+                    )
+                ckey = store.key_of(ed, self._wl_digest, bud_dig)
+                row = store.lookup(ckey)
+                if row is not None:
+                    # store hit: serve from the memoized row of an earlier
+                    # identical evaluation — no device row dispatched. The
+                    # consumer's own encoding rides along for adoption.
+                    results[idx[pos]] = _TorchHandle(
+                        _CachedBatch(row, self._stats, ed), 0, c, self
+                    )
+                    self._stats.n_cache_hits += 1
+                    continue
+                dup = batch_rows.get(ckey)
+                if dup is not None:
+                    # same-dispatch alias: an identical candidate is already
+                    # in this batch — share its row instead of paying one
+                    aliases.append((idx[pos], dup, c, ed))
+                    self._stats.n_cache_hits += 1
+                    store.note_alias_hit()
+                    continue
+                batch_rows[ckey] = len(eds)
+                row_keys.append(ckey)
             keep.append(pos)
             eds.append(ed)
-        if len(keep) != len(batch):
+        n_cand = len(batch)
+        if len(keep) != n_cand:
             batch = [batch[p] for p in keep]
             idx = [idx[p] for p in keep]
             if not batch:
@@ -1029,7 +1132,9 @@ class TorchBatchedBackend:
         uniform = all(
             c.budget is c0.budget and c.alpha == c0.alpha for c in batch[1:]
         )
-        state0 = len(base_encs) == 1 and b == b_pad and uniform
+        # (a batch the cache or the fallback thinned is refilled in full: the
+        # restore-only state is tracked for whole batches alone)
+        state0 = len(base_encs) == 1 and b == b_pad == n_cand and uniform
         fast = (
             state0 and prev is not None
             and prev[0] is base_encs[id(c0.base)]
@@ -1125,6 +1230,15 @@ class TorchBatchedBackend:
         for j, i in enumerate(idx):
             results[i] = _TorchHandle(shared, j, batch[j], self)
             self._stats.n_batched += 1
+        if store is not None:
+            # register every dispatched row for future sessions (lazy: the
+            # entry holds (batch, row) until a hit materializes it) and wire
+            # same-dispatch aliases onto the rows they dedupe against
+            for j, ckey in enumerate(row_keys):
+                store.insert(ckey, shared, j)
+                self._stats.n_cache_misses += 1
+            for i, j, c, ed in aliases:
+                results[i] = _TorchHandle(shared, j, c, self, ed)
 
     # ------------------------------------------------------------------
     # host-exact scalar rollups, shared between the lazy ``_decode`` and the

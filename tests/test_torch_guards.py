@@ -14,7 +14,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the gpu-marked tests run where there is no JAX
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
-                  "test_torch_gpu_rmsnorm.py")
+                  "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
+                  "test_torch_gpu_serve.py")
 
 
 def port_sources(ext=".py"):
@@ -38,8 +39,12 @@ def absolute_imports(path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = port_sources() + [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "tests", f) for f in JAX_FREE_TESTS]
+    files += [os.path.join(ROOT, "examples", f)
+              for f in ("torch_quickstart.py", "torch_serve_batch.py")]
     assert len(files) > 40, files  # the scan sees the whole package
-    for module in ("models/model.py", "models/mamba2.py", "launch/serve.py",
+    for module in ("serve/scheduler.py", "serve/store.py", "core/campaign.py",
+                   "core/event_sim.py", "runtime/health.py",
+                   "models/model.py", "models/mamba2.py", "launch/serve.py",
                    "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
                    "configs/registry.py", "kernels/_build.py"):
         assert os.path.join(PORT, module) in files, module
