@@ -8,8 +8,10 @@ Drives the port's paths and checks them: FARSI's price-and-search loop,
 kernel; the device chain block (``Explorer.run_chains()``), whose every
 iteration prices R chains through the same kernel; serving Qwen3-1.7B at
 full width and depth (``generate``: prefill and greedy decode) through the
-CUDA flash-attention kernel; and serving Mamba2-370m at full width and depth
-through the CUDA SSD and RMSNorm kernels. Phases, each printing one JSON line:
+CUDA flash-attention kernel; serving Mamba2-370m at full width and depth
+through the CUDA SSD and RMSNorm kernels; and training Qwen3-1.7B at full
+width and depth with the flash and RMSNorm kernels in the forward pass under
+autograd. Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
@@ -133,9 +135,38 @@ through the CUDA SSD and RMSNorm kernels. Phases, each printing one JSON line:
                norm, in the prefill and in each of the 32 decode calls);
                timed as serve is; then the plain path on the same weights (2
                layers: held to the reference's bar; 48 layers: reported)
- 17. kernels   one line per ported kernel (launches, error, times, bound;
+ 17. flash_grad  ops.flash_attention under autograd (the kernel's forward
+               with the row lse, the plain flash backward) against
+               flash_ref.FlashAttentionRef (plain forward and backward) on
+               the card: out at FLASH_TOL, lse within 1e-5 and dq, dk, dv
+               within FLASH_TOL of their max |value|; the training shape
+               (B=4, S=2048, H=16, KH=8, Dh=128, bf16, tensor cores), an
+               f32 shape at Dh 64 and a bf16 one at Dh 32 (CUDA cores); the
+               forward with and without the lse at the serving and the
+               training shape, in turns; the plain backward; SDPA's forward
+               and backward at the training shape
+ 18. train     Qwen3-1.7B, 28 layers, f32 master weights from init_params
+               (seed 0), SyntheticLM at seq 2048 and global batch 4,
+               remat="full", attn_impl and norm_impl "kernel", AdamW
+               (peak 1e-3, warmup 2, 8 steps): one step with the launches
+               counted (zeroed just before, read just after: 56 flash, all
+               tensor cores, and 225 RMSNorm), the same step from the same
+               state and batch on the plain path (blockwise, reference norm;
+               loss within 2e-2, grad norm 5e-2, every parameter 2.5 lr);
+               8 steps under the Supervisor with an async CheckpointManager
+               (save_every 3, a temporary directory), then the same run with
+               a fault injected once at step 5: one recovery, the loss trace
+               bit for bit the uninterrupted one's (both runs under
+               torch.use_deterministic_algorithms); step wall (synchronised,
+               median after the first), tokens/s, peak memory, losses and
+               grad norms, model FLOPs with and without the recompute and
+               their share of the bf16 peak, one step under the profiler
+               (busy share, top kernels)
+ 19. kernels   one line per ported kernel (launches, error, times, bound;
                flash and SSD also their launches per route; phase-sim its
-               launches per path, the serve phases' among them)
+               launches per path, the serve phases' among them; flash and
+               RMSNorm their launches in a serving run and in one train
+               step, flash its forward times with the lse)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object.
@@ -154,6 +185,7 @@ port only (``src/repro_torch``), never JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
 import subprocess
@@ -1685,6 +1717,296 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     }]
 
 
+# ---- the training path: flash's Function under autograd, Qwen3-1.7B training ----
+FLASH_GRAD_SHAPES = (  # (b, s, h, kh, dh, dtype): the training shape, a CUDA-core f32, a reduced bf16
+    (4, 2048, 16, 8, 128, "bfloat16"), (2, 1024, 8, 4, 64, "float32"), (2, 256, 4, 2, 32, "bfloat16"))
+LSE_TOL = 1e-5  # max|kernel - plain| / max|plain|: both take the lse in f32 from the same scores
+TRAIN = dict(seq=2048, batch=4, steps=8, save_every=3, fail_at=5, lr=1e-3)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_LR = 2e-2, 5e-2, 2.5  # card vs plain, one step
+
+
+def rel_to_max(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def flash_bwd_bound(b, h, kh, s, dh, itemsize) -> tuple:
+    """Least time for the flash backward (not a TPU kernel: a yardstick for
+    the plain one): q, k, v, out and dout read once, the f32 lse read once,
+    dq, dk, dv written once, over HBM bandwidth; five causal products (S
+    recomputed, dV, dP, dK, dQ: 10·Dh operations per query-key pair) over
+    the bf16 peak."""
+    nbytes = itemsize * (3 * b * h * s * dh + 2 * b * kh * s * dh) + 4 * b * h * s
+    nbytes += itemsize * (b * h * s * dh + 2 * b * kh * s * dh)
+    ops = 10.0 * b * h * dh * s * (s + 1) / 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_grad_phase(card: str) -> dict:
+    """Phase ``flash_grad``: ``ops.flash_attention`` under autograd (the
+    kernel's forward with the row lse, the plain backward) against
+    ``flash_ref.FlashAttentionRef`` (the plain forward and backward) on the
+    card: out, lse, dq, dk, dv; then times. Returns the numbers the kernels
+    line adds to flash's entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.flash_ref import FlashAttentionRef, _bwd_impl, _fwd_impl
+
+    t0 = time.perf_counter()
+    cases, failures = [], []
+    for b, s, h, kh, dh, dt in FLASH_GRAD_SHAPES:
+        dtype, tol = getattr(torch, dt), FLASH_TOL[dt]
+        q, k, v = (x.transpose(1, 2).contiguous() for x in flash_inputs(b, h, kh, s, dh, dtype, seed=s))
+        dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda").to(dtype)
+        blocks = (min(512, s), min(512, s))
+        xs, ys = ([x.clone().requires_grad_() for x in (q, k, v)] for _ in range(2))
+        before = dict(FK.launches_by_route)
+        out = flash_attention(*xs, True, *blocks)
+        grads = torch.autograd.grad(out, xs, dout)
+        took = [r for r in FK.ROUTES if FK.launches_by_route[r] != before[r]]
+        want = FlashAttentionRef.apply(*ys, True, *blocks)
+        want_grads = torch.autograd.grad(want, ys, dout)
+        lse = torch.empty((b, s, h), dtype=torch.float32, device="cuda")
+        FK.flash_attention_cuda(*(x.transpose(1, 2) for x in (q, k, v)), causal=True, lse=lse)
+        want_lse = _fwd_impl(q, k, v, True, *blocks)[1]
+        torch.cuda.synchronize()
+        mag = want.double().abs()
+        d = (out.double() - want.double()).abs()
+        errs = {"out": rel_to_max(out, want), "lse": rel_to_max(lse.view_as(want_lse), want_lse)}
+        errs.update({n: rel_to_max(g, w) for n, g, w in zip(("dq", "dk", "dv"), grads, want_grads)})
+        case = dict(shape=[b, s, h, kh, dh], dtype=dt, route=took, out_max_abs_err=d.max().item(),
+                    max_rel_err=errs, bar={"out": tol, "lse": LSE_TOL, "grads": tol},
+                    grad_fn=type(out.grad_fn).__name__)
+        ok = (bool((d <= tol + tol * mag).all()) and errs["lse"] <= LSE_TOL
+              and all(errs[n] <= tol for n in ("dq", "dk", "dv"))
+              and took == [FK.route(dtype, dh)] and out.grad_fn is not None)
+        cases.append(case)
+        if not ok:
+            failures.append(case)
+    if failures:
+        fail("flash_grad", "the flash Function disagrees with the plain one on the card", failures=failures)
+
+    # times at the serving and the training shape: the forward with and
+    # without the lse, in turns; at the training shape also the plain
+    # backward alone and SDPA's forward and backward
+    timing = {}
+    for s in (PREFILL["s"], TRAIN["seq"]):
+        b, h, kh, dh = PREFILL["b"], PREFILL["h"], PREFILL["kh"], PREFILL["dh"]
+        q, k, v = flash_inputs(b, h, kh, s, dh, torch.bfloat16, seed=s)
+        lse = torch.empty((b, s, h), dtype=torch.float32, device="cuda")
+        no_lse = lambda: FK.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+        with_lse = lambda: FK.flash_attention_cuda(q, k, v, causal=True, lse=lse)  # noqa: E731
+        runs = [cuda_time_ms(fn, 50) for fn in (no_lse, with_lse, with_lse, no_lse)]
+        timing[s] = dict(ms=(runs[0] + runs[3]) / 2, ms_lse=(runs[1] + runs[2]) / 2, runs=runs)
+    s = TRAIN["seq"]
+    qm, km, vm = (x.transpose(1, 2).contiguous() for x in flash_inputs(4, 16, 8, s, 128, torch.bfloat16, 1))
+    dout = torch.randn(qm.shape, device="cuda").to(torch.bfloat16)
+    out, lse = _fwd_impl(qm, km, vm, True, 512, 512)
+    bwd_ms = cuda_time_ms(lambda: _bwd_impl(qm, km, vm, out, lse, dout, True, 512, 512), 5)
+    bwd_bound_ms, bwd_bound_by = flash_bwd_bound(4, 16, 8, s, 128, 2)
+    xs = [x.clone().requires_grad_() for x in (qm, km, vm)]
+    fwd_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(flash_attention(*xs, True, 512, 512), xs, dout), 5)
+    qt = [x.transpose(1, 2).detach().requires_grad_() for x in (qm, km, vm)]
+    sdpa = lambda: F.scaled_dot_product_attention(*qt, is_causal=True, enable_gqa=True)  # noqa: E731
+    sdpa_fwd_ms = cuda_time_ms(sdpa, 20)
+    o = sdpa()
+    dot = dout.transpose(1, 2)
+    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(o, qt, dot, retain_graph=True), 20)
+    sdpa_fwd_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa(), qt, dot), 20)
+    summary = dict(
+        cases=cases, serve_shape=dict(PREFILL), train_shape=dict(PREFILL, s=s),
+        fwd_ms=timing[PREFILL["s"]], fwd_ms_train=timing[s],
+        lse_overhead_serve=timing[PREFILL["s"]]["ms_lse"] / timing[PREFILL["s"]]["ms"] - 1,
+        plain_bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by, fwd_bwd_ms=fwd_bwd_ms, sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+        sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms, card=card, seconds=time.perf_counter() - t0)
+    emit("flash_grad", ok=True, **summary)
+    return dict(ms_lse=timing[PREFILL["s"]]["ms_lse"], ms_lse_train=timing[s]["ms_lse"],
+                ms_train=timing[s]["ms"], library_ms_train_fwd_bwd=sdpa_fwd_bwd_ms,
+                plain_bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound_ms, library_bwd_ms=sdpa_bwd_ms,
+                grad_max_rel_err=max(max(c["max_rel_err"].values()) for c in cases))
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple:
+    """(model FLOPs of one training step, the same with the remat
+    recompute): 2·tokens·(layer matrices + the tied head) plus the causal
+    attention products (4·B·H·Dh·S(S+1)/2 a layer) make one forward; a step
+    is three forwards' worth (forward, then the backward's two products per
+    product), and the recompute of ``remat="full"`` (every layer and, the CE
+    chunks being checkpointed, the head) adds a fourth."""
+    d, hd, kvd, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
+    layer = d * hd + 2 * d * kvd + hd * d + 3 * d * ff
+    tokens = batch * seq
+    fwd = 2.0 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
+    fwd += cfg.n_layers * 4.0 * batch * cfg.n_heads * cfg.head_dim * seq * (seq + 1) / 2
+    return 3 * fwd, 4 * fwd
+
+
+def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
+    """Phase ``train``: Qwen3-1.7B (28 layers, width 2048) trained on the
+    card through the flash and RMSNorm kernels under autograd. ``cfg``,
+    ``device`` and ``overrides`` of :data:`TRAIN` exist to rehearse the
+    phase on the CPU at a reduced size (no kernel launches are counted
+    there). Returns the launch counts of one step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.models.model import RunFlags
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.health import Supervisor
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    run = dict(TRAIN, **overrides)
+    cfg = cfg or get_config("qwen3-1.7b")
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    opt = AdamWConfig(peak_lr=run["lr"], warmup_steps=2, total_steps=run["steps"])
+    kernel_flags = RunFlags(attn_impl="kernel", norm_impl="kernel", remat="full")
+    plain_flags = RunFlags(attn_impl="blockwise", norm_impl="reference", remat="full")
+    data = lambda: for_model(cfg, seq_len=run["seq"], global_batch=run["batch"], seed=0)  # noqa: E731
+    fresh = lambda: init_train_state(cfg, seed=0, device=device)  # noqa: E731
+
+    # ---- one step on the kernel path, its launches counted; the same step
+    # from the same state and batch on the plain path ------------------------
+    batch = data().next_batch()
+    state = fresh()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    sync()
+    FK.reset_launches()
+    rmsnorm_cuda.launches = 0
+    t0 = time.perf_counter()
+    state, km = make_train_step(cfg, kernel_flags, opt)(state, batch)
+    sync()
+    first_step_s = time.perf_counter() - t0
+    launches = {"flash": FK.flash_attention_cuda.launches, "flash_by_route": dict(FK.launches_by_route),
+                "rmsnorm": rmsnorm_cuda.launches}
+    want = {"flash": cfg.n_layers * 2, "rmsnorm": cfg.n_layers * 4 * 2 + 1} if on_card else None
+    kernel_params = {n: p.detach() for n, p in state["params"].named_parameters()}
+    del state
+    plain, pm = make_train_step(cfg, plain_flags, opt)(fresh(), batch)
+    sync()
+    lr = float(km["lr"])
+    param_err = max((kernel_params[n] - p.detach()).abs().max().item()
+                    for n, p in plain["params"].named_parameters())
+    vs_plain = dict(
+        loss_kernel=float(km["loss"]), loss_plain=float(pm["loss"]),
+        loss_rel=abs(float(km["loss"]) - float(pm["loss"])) / abs(float(pm["loss"])),
+        grad_norm_kernel=float(km["grad_norm"]), grad_norm_plain=float(pm["grad_norm"]),
+        grad_norm_rel=abs(float(km["grad_norm"]) - float(pm["grad_norm"])) / float(pm["grad_norm"]),
+        lr=lr, max_param_diff=param_err, max_param_diff_over_lr=param_err / lr,
+        bar={"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GNORM_RTOL, "param_atol_lr": TRAIN_PARAM_LR})
+    del plain, kernel_params
+    vs_ok = (vs_plain["loss_rel"] <= TRAIN_LOSS_RTOL and vs_plain["grad_norm_rel"] <= TRAIN_GNORM_RTOL
+             and param_err <= TRAIN_PARAM_LR * lr)
+
+    # ---- 8 steps under the Supervisor with an async checkpoint manager, then
+    # the same run with a fault injected once at step 5 -----------------------
+    def supervised(inject: bool):
+        tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+        try:
+            state = fresh()
+            target = state
+            ckpt = CheckpointManager(tmp, keep_n=1, async_save=True)
+            sup = Supervisor(ckpt, data(), save_every=run["save_every"])
+            step_fn = make_train_step(cfg, kernel_flags, opt)
+            trace, walls, injected = {}, [], []
+
+            def step(s, b):
+                if inject and not injected and int(s["step"]) == run["fail_at"] - 1:
+                    injected.append(int(s["step"]) + 1)
+                    raise RuntimeError(f"injected fault at step {run['fail_at']}")
+                sync()
+                t = time.perf_counter()
+                out = step_fn(s, b)
+                sync()
+                walls.append(time.perf_counter() - t)
+                return out
+
+            def on_metrics(i, m):
+                trace[i] = (m["loss"].item(), m["grad_norm"].item())
+
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            state = sup.run(state, step, run["steps"], restore_fn=lambda: ckpt.restore(target),
+                            on_metrics=on_metrics)
+            sync()
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            return state, dict(trace=trace, walls=walls, wall_s=wall, recoveries=sup.recoveries,
+                               injected=len(injected), peak=peak, stragglers=len(sup.monitor.flagged))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    det = (torch.are_deterministic_algorithms_enabled(), torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False  # the kernels' outputs are written whole
+    try:
+        state, clean = supervised(inject=False)
+        del state
+        state, faulty = supervised(inject=True)
+    finally:
+        torch.use_deterministic_algorithms(det[0])
+        torch.utils.deterministic.fill_uninitialized_memory = det[1]
+    steps = sorted(clean["trace"])
+    losses = [clean["trace"][i][0] for i in steps]
+    bitwise = [faulty["trace"].get(i) == clean["trace"][i] for i in steps]
+    walls = sorted(clean["walls"][1:])
+    step_s = walls[len(walls) // 2]
+    model_flops, remat_flops = train_flops(cfg, run["batch"], run["seq"])
+
+    profile = None
+    if on_card:  # where a step's time goes: one more step under the profiler
+        b = data().next_batch()
+        step_fn = make_train_step(cfg, kernel_flags, opt)
+        profile = device_profile(lambda: step_fn(state, b)[1]["loss"].item())
+    del state
+
+    summary = dict(
+        model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=run["batch"],
+        seq=run["seq"], steps=run["steps"], remat="full", flags="attn kernel, norm kernel",
+        launches_one_step=launches, want_launches=want, vs_plain=vs_plain,
+        step_wall_s=step_s, step_walls_s=clean["walls"], first_step_s=first_step_s,
+        tokens_per_s=run["batch"] * run["seq"] / step_s, supervised_wall_s=clean["wall_s"],
+        max_memory_allocated=clean["peak"], losses=losses,
+        grad_norms=[clean["trace"][i][1] for i in steps],
+        model_flops_per_step=model_flops, model_flops_with_recompute=remat_flops,
+        mfu=model_flops / step_s / PEAK_BF16_FLOPS, mfu_with_recompute=remat_flops / step_s / PEAK_BF16_FLOPS,
+        recovery=dict(injected=faulty["injected"], recoveries=faulty["recoveries"],
+                      bitwise_equal_steps=sum(bitwise), steps=len(steps), deterministic_algorithms=True,
+                      wall_s=faulty["wall_s"]),
+        stragglers=clean["stragglers"], profile=profile, card=card, seconds=time.perf_counter() - t_phase)
+    why = []
+    if want and (launches["flash"] != want["flash"] or launches["rmsnorm"] != want["rmsnorm"]
+                 or launches["flash_by_route"]["tensor_cores"] != want["flash"]):
+        why.append(f"launches {launches}, want {want} (flash all on the tensor-core route)")
+    if not vs_ok:
+        why.append("the kernel path's step is off the plain path's")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != run["steps"] or losses[-1] >= losses[0]:
+        why.append("losses not finite, or the last not below the first")
+    if faulty["injected"] != 1 or faulty["recoveries"] != 1:
+        why.append(f"{faulty['recoveries']} recoveries for {faulty['injected']} injected faults")
+    if not all(bitwise):
+        why.append("the recovered run's loss trace differs from the uninterrupted run's")
+    if why:
+        fail("train", "; ".join(why), **summary)
+    emit("train", ok=True, **summary)
+    return launches
+
+
 PHASE_OUTPUT_CASES = [("ar_complex", n, b) for n in (1, 2, 3) for b in TIMING_BATCHES] + [
     (t, n, b) for t in (1, 31, 33, 100) for n in (1, 2, 8) for b in (4, 4096)] + [
     (t, n, 4) for t in (257, 1024) for n in (1, 2, 8)]
@@ -1816,6 +2138,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS's deterministic workspace, set before its first handle: the
+    # train phase's recovered run is held to the uninterrupted one bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.kernel_times:
         if args.src:
             sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
@@ -1995,6 +2320,11 @@ def main() -> int:
 
     flash = flash_phases(card, flash_build)
     ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
+    flash.update(flash_grad_phase(card))
+    train_launches = train_phase(card)
+    flash["launches_by_path"] = {"serve": flash["launches"], "train_step": train_launches["flash"]}
+    rms_entry["launches_by_path"] = {"serve_mamba": rms_entry["launches"],
+                                     "train_step": train_launches["rmsnorm"]}
 
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape

@@ -13,7 +13,11 @@
 // and computes what it computes: S = q kT * scale, causal mask on absolute
 // row/col indices with NEG_INF = -1e30, running (m, l, acc) over KV tiles,
 // finalised with l = max(l, 1e-30), output in q's dtype. Query head h reads
-// KV head h * KH / H. The tensor-core route rounds P to bf16 before P.V (as
+// KV head h * KH / H. Where the caller passes a non-null lse pointer (the
+// training forward), both routes also write each row's log-sum-exp
+// m + log l in f32, (B, Sq, H) contiguous: viewed as (B, Sq, KH, H / KH) it
+// is the lse that models/flash_ref.py's backward reads. Serving passes null
+// and writes nothing more. The tensor-core route rounds P to bf16 before P.V (as
 // the reference's own attention_full does with probs.astype(v.dtype)); the
 // bf16 x bf16 products are exact in f32, so that is its one new rounding.
 //
@@ -128,7 +132,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, lon
 // row sum are shuffles.
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT) flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-                                                const T* __restrict__ v, T* __restrict__ o, Strides st,
+                                                const T* __restrict__ v, T* __restrict__ o,
+                                                float* __restrict__ lse, Strides st,
                                                 int h, int kh, int sq, int skv, int causal, float scale) {
     constexpr int LD = Tile<T, DH>::LD;
     constexpr int DPT = DH / 16;  // output columns per thread
@@ -243,32 +248,34 @@ __global__ void __launch_bounds__(NT) flash_fwd(const T* __restrict__ q, const T
         const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int d = 0; d < DPT; ++d) op[row * st.o[1] + tx + 16 * d] = from_f32<T>(acc[i][d] / den);
+        // m and l are the half-warp's after the shuffles: one thread writes the row's lse
+        if (lse != nullptr && tx == 0) lse[((long long)b * sq + row) * h + head] = m[i] + logf(den);
     }
 }
 
 template <typename T, int DH>
-int launch_typed(const void* q, const void* k, const void* v, void* o, const Strides& st, int b, int h,
-                 int kh, int sq, int skv, int causal, float scale, cudaStream_t stream) {
+int launch_typed(const void* q, const void* k, const void* v, void* o, float* lse, const Strides& st, int b,
+                 int h, int kh, int sq, int skv, int causal, float scale, cudaStream_t stream) {
     const size_t smem = Tile<T, DH>::smem_bytes();
     cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((sq + BQ - 1) / BQ, h, b);
     flash_fwd<T, DH><<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                  static_cast<const T*>(v), static_cast<T*>(o), st, h,
+                                                  static_cast<const T*>(v), static_cast<T*>(o), lse, st, h,
                                                   kh, sq, skv, causal, scale);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, const Strides& st, int b, int h,
+int launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Strides& st, int b, int h,
               int kh, int sq, int skv, int dh, int causal, float scale, cudaStream_t stream) {
     switch (dh) {
-        case 16: return launch_typed<T, 16>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, stream);
-        case 32: return launch_typed<T, 32>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, stream);
-        case 64: return launch_typed<T, 64>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, stream);
-        case 128: return launch_typed<T, 128>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, stream);
-        case 256: return launch_typed<T, 256>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, stream);
+        case 16: return launch_typed<T, 16>(q, k, v, o, lse, st, b, h, kh, sq, skv, causal, scale, stream);
+        case 32: return launch_typed<T, 32>(q, k, v, o, lse, st, b, h, kh, sq, skv, causal, scale, stream);
+        case 64: return launch_typed<T, 64>(q, k, v, o, lse, st, b, h, kh, sq, skv, causal, scale, stream);
+        case 128: return launch_typed<T, 128>(q, k, v, o, lse, st, b, h, kh, sq, skv, causal, scale, stream);
+        case 256: return launch_typed<T, 256>(q, k, v, o, lse, st, b, h, kh, sq, skv, causal, scale, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -463,8 +470,8 @@ template <int DH>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-                 long long o_sb, long long o_ss, long long o_sh, int h, int kh, int sq, int skv,
-                 int causal, float scale_log2, int head_step, int row_step, int head_chunks) {
+                 float* __restrict__ lse, long long o_sb, long long o_ss, long long o_sh, int h, int kh,
+                 int sq, int skv, int causal, float scale_log2, int head_step, int row_step, int head_chunks) {
     using L = Smem<DH>;
     constexpr int NCH = L::NCH;
     extern __shared__ unsigned char smem_raw[];
@@ -642,6 +649,12 @@ __global__ void __launch_bounds__(NT, 1)
             l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
         }
         const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+        if (lse != nullptr && lane % 4 == 0) {
+            // m is in log2 units: lse = ln 2 (m + log2 l); one thread of the quad per row
+            constexpr float LN2 = 0.693147180559945309f;
+            if (r_lo < sq) lse[((long long)b * sq + r_lo) * h + head] = (m_lo + log2f(den_lo)) * LN2;
+            if (r_hi < sq) lse[((long long)b * sq + r_hi) * h + head] = (m_hi + log2f(den_hi)) * LN2;
+        }
         __nv_bfloat16* op = o + b * o_sb + head * o_sh;
 #pragma unroll
         for (int i = 0; i < DH / 2; i += 2) {
@@ -797,8 +810,8 @@ template <int DH> int prepare() {
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, const Strides& st, int b, int h, int kh,
-           int sq, int skv, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const Strides& st, int b, int h,
+           int kh, int sq, int skv, int causal, float scale, cudaStream_t stream) {
     int err = prepare<DH>();
     if (err) return err;
     CUtensorMap mq, mk, mv;
@@ -812,7 +825,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const Strides& 
     const dim3 grid(kh * head_chunks, b, (sq + BM + row_step - 1) / (BM + row_step));
     const float log2e = 1.4426950408889634f;
     flash_fwd_tc<DH><<<grid, NT, Smem<DH>::ALLOC, stream>>>(
-        mq, mk, mv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2], h, kh, sq, skv, causal,
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, st.o[0], st.o[1], st.o[2], h, kh, sq, skv, causal,
         scale * log2e, head_step, row_step, head_chunks);
     return (int)cudaGetLastError();
 }
@@ -844,31 +857,34 @@ Strides strides_from(const long long* s) {
 
 }  // namespace
 
-// The CUDA-core route. dtype: 0 float32, 1 bfloat16; strides: 12 element
-// strides, (batch, row, head) of q, k, v and the output. Returns
-// cudaGetLastError() of the launch (0 on success); never synchronises.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int dtype,
+// The CUDA-core route. lse: null, or (B, Sq, H) f32 for each row's
+// log-sum-exp; dtype: 0 float32, 1 bfloat16; strides: 12 element strides,
+// (batch, row, head) of q, k, v and the output. Returns cudaGetLastError()
+// of the launch (0 on success); never synchronises.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                                       int b, int h, int kh, int sq, int skv, int dh,
                                       const long long* strides, int causal, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Strides st = strides_from(strides);
+    float* l = static_cast<float*>(lse);
     switch (dtype) {
-        case 0: return cc::launch_dh<float>(q, k, v, o, st, b, h, kh, sq, skv, dh, causal, scale, s);
-        case 1: return cc::launch_dh<__nv_bfloat16>(q, k, v, o, st, b, h, kh, sq, skv, dh, causal, scale, s);
+        case 0: return cc::launch_dh<float>(q, k, v, o, l, st, b, h, kh, sq, skv, dh, causal, scale, s);
+        case 1: return cc::launch_dh<__nv_bfloat16>(q, k, v, o, l, st, b, h, kh, sq, skv, dh, causal, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 // The tensor-core route: bf16, Dh 64, 128 or 256; arguments as above.
-extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-                                         int kh, int sq, int skv, int dh, const long long* strides,
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+                                         int h, int kh, int sq, int skv, int dh, const long long* strides,
                                          int causal, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Strides st = strides_from(strides);
+    float* l = static_cast<float*>(lse);
     switch (dh) {
-        case 64: return tc::launch<64>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, s);
-        case 128: return tc::launch<128>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, s);
-        case 256: return tc::launch<256>(q, k, v, o, st, b, h, kh, sq, skv, causal, scale, s);
+        case 64: return tc::launch<64>(q, k, v, o, l, st, b, h, kh, sq, skv, causal, scale, s);
+        case 128: return tc::launch<128>(q, k, v, o, l, st, b, h, kh, sq, skv, causal, scale, s);
+        case 256: return tc::launch<256>(q, k, v, o, l, st, b, h, kh, sq, skv, causal, scale, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

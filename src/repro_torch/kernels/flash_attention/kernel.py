@@ -22,13 +22,16 @@ of either raises):
 
 Both read q, k and v in place through their strides (the model's
 (B, S, H, Dh) activations, or slices of one fused projection) and write the
-output (B, S, H, Dh), so the wrapper copies nothing.
+output (B, S, H, Dh), so the wrapper copies nothing. Given an ``lse``
+tensor, both also write each row's log-sum-exp into it (the training
+forward: ``ops.flash_attention`` under autograd saves it for the backward).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -57,9 +60,9 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 7 + [ll, ci, ctypes.c_float, vp]
+    lib.flash_attention_launch.argtypes = [vp] * 5 + [ci] * 7 + [ll, ci, ctypes.c_float, vp]
     lib.flash_attention_launch.restype = ci
-    lib.flash_attention_tc_launch.argtypes = [vp] * 4 + [ci] * 6 + [ll, ci, ctypes.c_float, vp]
+    lib.flash_attention_tc_launch.argtypes = [vp] * 5 + [ci] * 6 + [ll, ci, ctypes.c_float, vp]
     lib.flash_attention_tc_launch.restype = ci
     lib.flash_attention_wgmma_tile.argtypes = [vp] * 5 + [ci, vp]
     lib.flash_attention_wgmma_tile.restype = ci
@@ -108,14 +111,17 @@ def kernel_strides(x: torch.Tensor) -> tuple:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel on the current stream: q (B, H, Sq, Dh), k and v
     (B, KH, Skv, Dh), views of any strides that :func:`kernel_strides`
     takes (contiguous, or the model's (B, S, H, Dh) transposed), one float
     dtype, on one CUDA device, H a multiple of KH and Dh one of
     :data:`HEAD_DIMS`. Returns the output (B, H, Sq, Dh) in q's dtype, a
-    view of a contiguous (B, Sq, H, Dh) tensor. Raises if an argument is off
-    or the launch fails; never synchronises."""
+    view of a contiguous (B, Sq, H, Dh) tensor. ``lse``, where given, is a
+    contiguous f32 (B, Sq, H) tensor on q's device that the kernel fills
+    with each row's log-sum-exp (natural log, of the scaled and masked
+    scores). Raises if an argument is off or the launch fails; never
+    synchronises."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_cuda: q, k, v must be (B, H, S, Dh)")
     b, h, sq, dh = q.shape
@@ -135,6 +141,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads are not a multiple of {kh} KV heads")
+    if lse is not None and (lse.dtype != torch.float32 or tuple(lse.shape) != (b, sq, h)
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse: expected a contiguous float32 {(b, sq, h)} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
@@ -145,7 +155,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _LIB.get()
     stream = stream_handle(q.get_device())
     which = route(q.dtype, dh)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     if which == "tensor_cores":
         err = lib.flash_attention_tc_launch(*ptrs, b, h, kh, sq, skv, dh, strides, int(causal),
                                             1.0 / math.sqrt(dh), stream)

@@ -13,16 +13,59 @@ The device of the inputs picks the path, and nothing else does:
   * CPU tensors run the plain version (``ref.attention_reference``);
   * any other device raises.
 
+Under autograd (grad enabled and an input that needs a gradient) the call
+goes through :class:`FlashAttention`, a ``torch.autograd.Function``: its
+forward is the kernel, which then also writes each row's log-sum-exp (on
+CPU tensors ``models.flash_ref._fwd_impl``), and its backward the
+reference's plain flash backward (``models.flash_ref._bwd_impl``) on the
+saved (q, k, v, out, lse), in f32 torch products. No backward kernel
+exists in the reference (its Pallas wrapper has no VJP), so none is ported.
+Without autograd the call saves nothing and writes no lse.
+
 The block sizes keep the reference's contract (each divides the sequence,
 after clipping to it; H is a multiple of KH). The CUDA kernel picks its own
-tiles, so on the card they constrain the call and nothing else.
+tiles, so on the card they constrain the forward and set the backward's
+blocks.
 """
 from __future__ import annotations
 
 import torch
 
+from ...models.flash_ref import _bwd_impl, _fwd_impl
 from .kernel import flash_attention_cuda, kernel_reads
 from .ref import attention_reference
+
+
+def _kernel_inputs(q, k, v):
+    """(B, H, S, Dh) views the kernel reads in place (a copy only where it
+    cannot)."""
+    q, k, v = (x if kernel_reads(x) else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
+    return (x.transpose(1, 2) for x in (q, k, v))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel with the row log-sum-exp (CUDA tensors) or
+    ``flash_ref._fwd_impl`` (CPU tensors); backward: ``flash_ref._bwd_impl``
+    on the saved (q, k, v, out, lse (B, S, KH, G) f32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_block: int, kv_block: int):
+        b, s, h, _ = q.shape
+        if q.device.type == "cuda":
+            lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+            out = flash_attention_cuda(*_kernel_inputs(q, k, v), causal=causal, lse=lse).transpose(1, 2)
+            lse = lse.view(b, s, k.shape[2], h // k.shape[2])
+        else:
+            out, lse = _fwd_impl(q, k, v, causal, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _bwd_impl(*ctx.saved_tensors, dout, *ctx.blocks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -40,14 +83,11 @@ def flash_attention(
         raise ValueError(f"blocks ({q_block}, {kv_block}) must divide the sequences ({sq}, {skv})")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads are not a multiple of {kh} KV heads")
-    if q.device.type == "cuda":
-        q, k, v = (x if kernel_reads(x) else x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out = flash_attention_cuda(qt, kt, vt, causal=causal)
-    elif q.device.type == "cpu":
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out = attention_reference(qt, kt, vt, causal=causal)
-    else:
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: no path for tensors on {q.device}")
-    return out.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_block, kv_block)
+    if q.device.type == "cuda":
+        return flash_attention_cuda(*_kernel_inputs(q, k, v), causal=causal).transpose(1, 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return attention_reference(qt, kt, vt, causal=causal).transpose(1, 2)

@@ -13,6 +13,11 @@ The device of the inputs picks the path, and nothing else does:
   * any other device raises.
 
 It keeps the reference's contract: ``chunk = min(chunk, S)`` must divide S.
+
+The kernel has no backward: under autograd (grad enabled and an input that
+needs a gradient) the call raises ``NotImplementedError`` rather than
+return a result that cuts the gradient. Mamba training runs
+``ssd_impl="reference"`` (plain autograd, as the reference trains).
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import torch
 from .kernel import kernel_reads, route, ssd_cuda
 from .ref import ssd_reference
 
+SSD_GRAD_TODO = ("the SSD kernel has no backward yet (ROADMAP queue 1: Mamba training with an SSD "
+                 "backward kernel); train Mamba-2 with RunFlags(ssd_impl=\"reference\")")
+
 
 def ssd(
     x: torch.Tensor,  # (B, S, H, P)
@@ -32,6 +40,8 @@ def ssd(
     c_mat: torch.Tensor,  # (B, S, N)
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
+        raise NotImplementedError(SSD_GRAD_TODO)
     s = x.shape[1]
     chunk = min(chunk, s)
     if chunk <= 0 or s % chunk:

@@ -1,1 +1,1 @@
-"""Entry points: batched serving."""
+"""Entry points: batched serving and training."""

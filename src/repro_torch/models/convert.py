@@ -8,6 +8,11 @@ holding the same values, one entry of ``layers`` per layer (layer
 ``c * cycle_len + pos`` is cycle ``c`` of position ``pos``). Both packages
 then compute the same function on the same inputs. bf16 leaves (numpy
 arrays of the ``bfloat16`` extension type) keep their bits.
+
+``train_state_from_reference(state)`` does the same for the reference's
+train state ``{params, opt: {m, v, count}, step}``: the moments go through
+the same mapping and come out keyed by the port's parameter names, as
+``optim.adamw`` keeps them.
 """
 from __future__ import annotations
 
@@ -50,3 +55,22 @@ def _leaves(node):
             yield from _leaves(v)
     else:
         yield node
+
+
+def train_state_from_reference(state: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The port's train state (``train.step.init_train_state``'s layout:
+    parameters requiring grad, ``{name: f32 moment}`` dicts, int32 count and
+    step) with the values of the reference's, every leaf a numpy array."""
+    params = params_from_reference(state["params"], device).requires_grad_(True)
+    dev = params.device
+
+    def moments(tree):
+        return {name: t.detach() for name, t in params_from_reference(tree, dev).named_parameters()}
+
+    def scalar(a):
+        return torch.tensor(np.array(a), dtype=torch.int32, device=dev)
+
+    opt = state["opt"]
+    return {"params": params,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]), "count": scalar(opt["count"])},
+            "step": scalar(state["step"])}

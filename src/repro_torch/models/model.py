@@ -27,16 +27,24 @@ point), and ``norm_impl="kernel"`` runs every RMSNorm of the stack (norm1,
 norm2, q/k-norm, the Mamba gated norm and the final norm) through
 ``kernels.rmsnorm.ops.rmsnorm``. The defaults are the reference's plain
 functions.
+
+Training differentiates ``forward_hidden`` (``train.step``): the kernel
+wrappers then go through their ``torch.autograd.Function``s (flash and
+RMSNorm; the SSD kernel has no backward and raises), and
+``RunFlags.remat`` recomputes each cycle's activations in the backward as
+the reference's ``jax.checkpoint`` of its cycle body does. Serving runs
+under ``torch.inference_mode`` and records nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
@@ -62,14 +70,15 @@ _F32 = torch.float32
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Per-call execution knobs: the reference's attention knobs and
-    ``ssd_chunk``, and the port's kernel switches ``ssd_impl`` and
-    ``norm_impl`` (module docstring). The reference's ``remat`` and
-    ``moe_impl`` come with the training and MoE slices."""
+    """Per-call execution knobs: the reference's attention knobs, ``remat``
+    and ``ssd_chunk``, and the port's kernel switches ``ssd_impl`` and
+    ``norm_impl`` (module docstring). The reference's ``moe_impl`` comes
+    with the MoE slice."""
 
     attn_impl: str = "auto"  # "auto" | "full" | "blockwise" | "kernel"
     q_block: int = 512
     kv_block: int = 1024
+    remat: str = "none"  # "none" | "full" | "dots"
     ssd_chunk: int = 64
     ssd_impl: str = "reference"  # "reference" | "kernel"
     norm_impl: str = "reference"  # "reference" | "kernel"
@@ -92,6 +101,30 @@ def _ssd_fn(flags: RunFlags, s: int) -> Callable:
     return partial(impl, chunk=min(flags.ssd_chunk, s))
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``, the counterpart of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep the
+    outputs of products with no batch dims (``mm``, and ``bmm`` over a batch
+    of one, which is how ``einsum`` runs a weight product), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation checkpointing ``remat`` names, where
+    autograd records (no grad: ``fn`` itself)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    policy = {} if remat == "full" else {
+        "context_fn": partial(create_selective_checkpoint_contexts, _save_dots)}
+    return partial(checkpoint, fn, use_reentrant=False, **policy)
+
+
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller names another device; asking for CUDA
     where there is none raises (nothing drops to the CPU silently)."""
@@ -106,7 +139,9 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------------
 class ParamTree(nn.Module):
     """A nested dict of tensors held as a module tree: dict keys become
-    submodules or parameters (no gradient), lists become ``ModuleList``s."""
+    submodules or parameters, lists become ``ModuleList``s. Parameters
+    need no gradient until a train state asks for one
+    (``train.step.init_train_state``: ``requires_grad_(True)``)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -342,18 +377,28 @@ def _head(p, cfg: ModelConfig, x: torch.Tensor, norm: Callable = rms_norm) -> to
 # public entry points
 # ---------------------------------------------------------------------------
 def _sequence(p, cfg: ModelConfig, batch, flags: RunFlags, compute_dtype, want_cache: bool):
-    """Embed and run every layer: (hidden pre-final-norm, per-layer caches)."""
+    """Embed and run every layer: (hidden pre-final-norm, per-layer caches).
+    Under autograd each cycle (``cfg.cycle_len`` layers) is one unit of
+    ``flags.remat``; caches come only from runs without it."""
     x = _embed(p, cfg, batch, compute_dtype)
     b, s, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     mrope_positions = batch.get("mrope_positions")
-    caches: List[Optional[dict]] = []
-    for i, lp in enumerate(p["layers"]):
-        x, cache = _block_seq(i % cfg.cycle_len, lp, x, cfg, flags, positions, mrope_positions,
-                              want_cache)
-        caches.append(cache)
+
+    def cycle_body(x, layers):
+        caches = []
+        for pos, lp in enumerate(layers):
+            x, cache = _block_seq(pos, lp, x, cfg, flags, positions, mrope_positions, want_cache)
+            caches.append(cache)
+        return x, caches
+
+    body = _remat(cycle_body, "none" if want_cache else flags.remat)
+    cl, caches = cfg.cycle_len, []
+    for c in range(0, len(p["layers"]), cl):
+        x, cycle_caches = body(x, p["layers"][c:c + cl])
+        caches += cycle_caches
     return x, (caches if want_cache else None)
 
 

@@ -1,1 +1,2 @@
-"""Runtime health: step-time straggler flagging and heartbeat liveness."""
+"""Runtime health: step-time straggler flagging, heartbeat liveness, and
+the Supervisor's restore-and-retry on a failed training step."""

@@ -1,1 +1,1 @@
-"""Step functions of the decoder (serving; training comes later)."""
+"""Step functions of the decoder: training and serving."""

@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 # the gpu-marked tests run where there is no JAX
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
                   "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
-                  "test_torch_gpu_serve.py")
+                  "test_torch_gpu_serve.py", "test_torch_gpu_train.py")
 
 
 def port_sources(ext=".py"):
@@ -40,13 +40,16 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = port_sources() + [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "tests", f) for f in JAX_FREE_TESTS]
     files += [os.path.join(ROOT, "examples", f)
-              for f in ("torch_quickstart.py", "torch_serve_batch.py")]
+              for f in ("torch_quickstart.py", "torch_serve_batch.py", "torch_train_lm.py",
+                        "torch_fault_tolerance.py")]
     assert len(files) > 40, files  # the scan sees the whole package
     for module in ("serve/scheduler.py", "serve/store.py", "core/campaign.py",
                    "core/event_sim.py", "runtime/health.py",
                    "models/model.py", "models/mamba2.py", "launch/serve.py",
                    "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
-                   "configs/registry.py", "kernels/_build.py"):
+                   "configs/registry.py", "kernels/_build.py", "models/flash_ref.py",
+                   "optim/adamw.py", "optim/compress.py", "train/step.py", "data/pipeline.py",
+                   "checkpoint/manager.py", "launch/train.py"):
         assert os.path.join(PORT, module) in files, module
     bad = [
         (os.path.relpath(p, ROOT), line, mod)
