@@ -9,9 +9,11 @@ kernel; the device chain block (``Explorer.run_chains()``), whose every
 iteration prices R chains through the same kernel; serving Qwen3-1.7B at
 full width and depth (``generate``: prefill and greedy decode) through the
 CUDA flash-attention kernel; serving Mamba2-370m at full width and depth
-through the CUDA SSD and RMSNorm kernels; and training Qwen3-1.7B at full
-width and depth with the flash and RMSNorm kernels in the forward pass under
-autograd. Phases, each printing one JSON line:
+through the CUDA SSD and RMSNorm kernels; serving the MoE stacks at full
+width (Jamba, one whole 8-layer cycle, through all three LLM kernels, and
+four layers of Qwen3-MoE); and training Qwen3-1.7B at full width and depth
+with the flash and RMSNorm kernels in the forward pass under autograd.
+Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
   2. build     nvcc build of the kernel (registers, shared memory, spills)
@@ -135,6 +137,32 @@ autograd. Phases, each printing one JSON line:
                norm, in the prefill and in each of the 32 decode calls);
                timed as serve is; then the plain path on the same weights (2
                layers: held to the reference's bar; 48 layers: reported)
+ 16b. serve_moe  generate() on Jamba (jamba-v0.1-52b cut from 32 to 8
+               layers: one whole cycle, 1 attention and 7 Mamba-2 layers, 4
+               MoE layers of 16 experts top-2 and 4 dense ones; 13.27 B
+               parameters) and on Qwen3-MoE (cut from 94 to 4 layers, 128
+               experts top-8, qk-norm; 11.2 B), full width, seeded random
+               bf16 weights made on the card, one model at a time (freed
+               before the next phase): the memory allocated before each;
+               one MoE layer at the prefill and the decode shape under
+               torch.cuda.set_sync_debug_mode("error"); 4 prompts of 512
+               tokens, 32 new tokens, attn_impl, ssd_impl and norm_impl
+               "kernel", timed as serve is (tokens/s, prefill ms, decode ms
+               a step beside its bound: every weight read once, the caches
+               once, over 3.35 TB/s); launches counted (zeroed just before,
+               read just after) and held to moe_want_launches (Jamba 1
+               flash, 7 SSD, 792 RMSNorm; Qwen3-MoE 4 flash, 561 RMSNorm),
+               flash and SSD all on tensor cores; then the kernel path
+               against the plain path on the same weights: each layer alone
+               from the plain path's hidden state (the reference's bar on
+               the layer's output for the tokens routed alike; the share of
+               tokens with another top-k expert set at each MoE layer, with
+               the router's margin at the top-k boundary: at most 5 % for
+               Jamba, reported for Qwen3-MoE), then end to end (flips
+               compound with depth: Jamba's first 4 layers held, flips per
+               MoE layer at most 5 % and the bar on every position whose
+               causal context was routed alike in every MoE layer; Jamba's 8
+               and Qwen3-MoE's 4 layers reported)
  17. flash_grad  ops.flash_attention under autograd (the kernel's forward
                with the row lse, the plain flash backward) against
                flash_ref.FlashAttentionRef (plain forward and backward) on
@@ -164,9 +192,11 @@ autograd. Phases, each printing one JSON line:
                (busy share, top kernels)
  19. kernels   one line per ported kernel (launches, error, times, bound;
                flash and SSD also their launches per route; phase-sim its
-               launches per path, the serve phases' among them; flash and
-               RMSNorm their launches in a serving run and in one train
-               step, flash its forward times with the lse)
+               launches per path, the serve phases' among them; flash, SSD
+               and RMSNorm their launches in each serving run (serve_moe:
+               Jamba's, and Qwen3-MoE's as serve_moe_qwen3) and flash and
+               RMSNorm in one train step, flash its forward times with the
+               lse)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object.
@@ -1717,6 +1747,317 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     }]
 
 
+# ---- the MoE serving path: Jamba and Qwen3-MoE through the three LLM kernels ----------
+# (config, layers served (cut from 32 and 94), layers of the end-to-end comparison
+# held to the routing and value bars (0: all reported, none held))
+SERVE_MOE = (("jamba-v0.1-52b", 8, 4), ("qwen3-moe-235b-a22b", 4, 0))
+MOE_FLIP_MAX = 0.05  # tokens whose top-k expert set differs, kernel vs plain path, per MoE layer
+
+
+def moe_want_launches(cfg, calls: int) -> dict:
+    """Kernel launches one ``generate`` of ``calls`` forward calls (the
+    prefill and each decode step) makes: a flash per attention layer and an
+    SSD per Mamba-2 layer, in the prefill only; and per call an RMSNorm for
+    norm1 and norm2 of every layer with a channel mixer, q- and k-norm of
+    every attention layer with qk-norm, the gated norm of every Mamba-2
+    layer, and the final norm."""
+    kinds = [cfg.block_kinds[i % cfg.cycle_len] for i in range(cfg.n_layers)]
+    mlps = [cfg.mlp_kind_at(i % cfg.cycle_len) for i in range(cfg.n_layers)]
+    per_call = (cfg.n_layers + sum(m != "none" for m in mlps) + kinds.count("mamba")
+                + (2 * kinds.count("attn") if cfg.qk_norm else 0) + 1)
+    return {"flash": kinds.count("attn"), "ssd": kinds.count("mamba"), "rmsnorm": per_call * calls}
+
+
+def routing_flips(got, want, n_experts: int):
+    """Per MoE call of two runs (``moe.record_routing`` lists): the share of
+    tokens whose top-k expert set differs, and of those whose kept set
+    differs, with the second run's margin at the top-k boundary (median over
+    all tokens, largest over the flipped ones); and the (T,) mask of tokens
+    that agree in both, in every call."""
+    import torch
+
+    agree, shares = None, []
+    for a, b in zip(got, want):
+        t = a["expert_idx"].shape[0]
+        flip = (a["expert_idx"].sort(-1).values != b["expert_idx"].sort(-1).values).any(-1)
+        kept = [torch.zeros(t, n_experts, dtype=torch.bool, device=flip.device).scatter_(
+            1, r["expert_idx"], r["keep"]) for r in (a, b)]
+        kept_diff = (kept[0] != kept[1]).any(-1)
+        shares.append({"set": flip.float().mean().item(), "kept": kept_diff.float().mean().item(),
+                       "gap_median": b["gap"].median().item(),
+                       "gap_max_flipped": b["gap"][flip].max().item() if flip.any() else None})
+        ok = ~(flip | kept_diff)
+        agree = ok if agree is None else agree & ok
+    return shares, agree
+
+
+def moe_path_compare(model, cfg, prompt, flags, n_layers: int) -> dict:
+    """The first ``n_layers`` layers' logits on the kernel path (``flags``)
+    against the plain path on the same weights: routing flips per MoE layer,
+    and the difference over all positions, over the tokens routed alike in
+    every MoE layer, and over the positions none of whose causal context
+    (the tokens up to it in its sequence) was routed otherwise: attention
+    and the SSM carry a flipped token's difference to every later position
+    of its sequence. The bar is held on those last."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Model, RunFlags, forward
+    from repro_torch.models.moe import record_routing
+
+    tree = model.tree()
+    m = Model(dict(tree, layers=tree["layers"][:n_layers]))
+    c = dataclasses.replace(cfg, n_layers=n_layers)
+    with torch.inference_mode():
+        with record_routing() as rk:
+            got = forward(m, c, prompt, flags)[0]
+        with record_routing() as rp:
+            want = forward(m, c, prompt, RunFlags())[0]
+        flips, alike = routing_flips(rk, rp, cfg.n_experts)
+        alike = alike.reshape(got.shape[:2])
+        clean = alike.int().cumprod(-1).bool()  # and every earlier token of the sequence
+        d = (got - want).abs()
+        tok_ok = (d <= SERVE_ATOL + SERVE_RTOL * want.abs()).all(-1)
+        out = dict(
+            layers=n_layers, moe_layers=len(flips), routing_flips=flips,
+            max_set_flip=max(f["set"] for f in flips),
+            routed_alike_share=alike.float().mean().item(),
+            clean_share=clean.float().mean().item(),
+            max_abs_diff=d.max().item(),
+            max_abs_diff_routed_alike=d[alike].max().item() if alike.any() else None,
+            max_abs_diff_clean=d[clean].max().item() if clean.any() else None,
+            within_bar_routed_alike=bool(tok_ok[alike].all()),
+            within_bar_clean=bool(tok_ok[clean].all()),
+            within_bar_share=tok_ok.float().mean().item(),
+            top1_agree=(got.argmax(-1) == want.argmax(-1)).float().mean().item())
+    del got, want, d
+    return out
+
+
+def moe_layer_compare(model, cfg, prompt, flags) -> list:
+    """Each layer alone on the kernel path (``flags``) and on the plain path,
+    from the same input, the plain path's hidden state (teacher-forced: no
+    difference or flip carries from one layer into the next). Per layer: at
+    an MoE layer its routing flips and margins (``routing_flips``), and the
+    difference of its output over all tokens and over those routed alike,
+    with the reference's bar on those."""
+    import torch
+
+    from repro_torch.models.model import RunFlags, _block_seq, _embed, cast_params
+    from repro_torch.models.moe import record_routing
+
+    rows = []
+    with torch.inference_mode():
+        p = cast_params(model, torch.bfloat16)
+        x = _embed(p, cfg, prompt, torch.bfloat16)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for i, lp in enumerate(p["layers"]):
+            pos = i % cfg.cycle_len
+            runs = []
+            for f in (flags, RunFlags()):
+                with record_routing() as calls:
+                    runs.append((_block_seq(pos, lp, x, cfg, f, positions, None, False)[0], calls))
+            (yk, rk), (yp, rp) = runs
+            row = {"layer": i, "kind": f"{cfg.block_kinds[pos]}/{cfg.mlp_kind_at(pos)}"}
+            alike = torch.ones(b * s, dtype=torch.bool, device=x.device)
+            if rk:
+                flips, alike = routing_flips(rk, rp, cfg.n_experts)
+                row.update(flips[0])
+            alike = alike.reshape(b, s)
+            d = (yk.float() - yp.float()).abs()
+            ok = (d <= SERVE_ATOL + SERVE_RTOL * yp.float().abs()).all(-1)
+            row.update(max_abs_diff=d.max().item(), routed_alike_share=alike.float().mean().item(),
+                       max_abs_diff_routed_alike=d[alike].max().item(),
+                       within_bar_routed_alike=bool(ok[alike].all()))
+            rows.append(row)
+            x = yp
+    return rows
+
+
+def decode_bound_ms(model, cfg, cache, batch: int) -> tuple:
+    """Least time of one decode step: every weight read once (the
+    reference's static-capacity dispatch runs every expert every step), the
+    embedding only at the batch's rows, each cache tensor read once and the
+    Mamba-2 state and conv window written once, over HBM bandwidth."""
+    nbytes = sum(t.numel() * t.element_size() for n, t in model.named_parameters() if n != "embed")
+    if cfg.input_mode == "tokens" and hasattr(model, "embed"):
+        nbytes += batch * cfg.d_model * model.embed.element_size()
+    for i, c in enumerate(cache):
+        mamba = cfg.block_kinds[i % cfg.cycle_len] != "attn"
+        nbytes += sum(t.numel() * t.element_size() * (2 if mamba else 1) for t in c.values())
+    return nbytes / PEAK_BYTES_S * 1e3, nbytes
+
+
+def serve_moe_phase(card: str, models=None, device="cuda", batch=SERVE_BATCH,
+                    prompt_len=SERVE_PROMPT, new=SERVE_NEW, profile=True) -> dict:
+    """Phase ``serve_moe``: Jamba (one whole 8-layer cycle) and Qwen3-MoE (4
+    layers) at full width, seeded random bf16 weights made on the card,
+    served through ``generate`` with every flash, SSD and RMSNorm call on its
+    kernel. ``models`` ((config, layers held) pairs; :data:`SERVE_MOE` by
+    default; 0 layers held: the end-to-end comparison is only reported),
+    ``device``, the sizes and ``profile`` exist to rehearse the
+    phase on the CPU at a reduced size (no launches are counted there and no
+    host sync is checked). Returns each model's kernel launches in its
+    counted ``generate``, by config name."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import ARCHS, get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as NK
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch.serve import extend_cache, generate
+    from repro_torch.models.model import RunFlags, init_params
+    from repro_torch.models.moe import capacity, moe_apply
+    from repro_torch.train.step import make_prefill_step
+
+    if models is None:
+        models = [(dataclasses.replace(get_config(name), n_layers=n), held)
+                  for name, n, held in SERVE_MOE]
+    on_card = torch.device(device).type == "cuda"
+    kernel_flags = RunFlags(attn_impl="kernel", ssd_impl="kernel", norm_impl="kernel")
+    out = {}
+    for cfg, held in models:
+        name, n_layers = cfg.name, cfg.n_layers
+        t_phase = time.perf_counter()
+        allocated_before = torch.cuda.memory_allocated() if on_card else None
+        model, init_s = timed(lambda: init_params(cfg, seed=0, dtype=torch.bfloat16, device=device))
+        n_params = sum(t.numel() for t in model.parameters())
+        g = torch.Generator(device=device).manual_seed(1)
+        prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                                          device=device)}
+
+        # one MoE layer at the prefill and the decode shape with any host
+        # synchronisation raising (after a warm-up call)
+        first_moe = next(i for i in range(n_layers) if cfg.mlp_kind_at(i % cfg.cycle_len) == "moe")
+        lp = model.tree()["layers"][first_moe]["mlp"]
+        x = torch.randn(batch, prompt_len, cfg.d_model, generator=g, device=device).to(torch.bfloat16)
+        sync_error = None
+        with torch.inference_mode():
+            moe_apply(lp, x, cfg)
+            moe_apply(lp, x[:, :1], cfg)
+            if on_card:
+                torch.cuda.synchronize()
+                try:
+                    with sync_errors()():
+                        moe_apply(lp, x, cfg)
+                        moe_apply(lp, x[:, :1], cfg)
+                except RuntimeError as e:
+                    sync_error = str(e)[:300]
+        if sync_error is not None:
+            fail("serve_moe", f"{name}: a host synchronisation in moe_apply", error=sync_error)
+        del x
+
+        generate(model, cfg, prompt, 1, flags=kernel_flags)  # warm-up: cuBLAS handles, allocator
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        FK.reset_launches()
+        SK.reset_launches()
+        NK.rmsnorm_cuda.launches = 0
+        t0 = time.perf_counter()
+        tokens, last = generate(model, cfg, prompt, new, flags=kernel_flags)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash": FK.flash_attention_cuda.launches, "ssd": SK.ssd_cuda.launches,
+                    "rmsnorm": NK.rmsnorm_cuda.launches}
+        routes = {"flash": dict(FK.launches_by_route), "ssd": dict(SK.launches_by_route)}
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+
+        walls = []
+        for _ in range(3):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, first = generate(model, cfg, prompt, 0, max_len=prompt_len + new, flags=kernel_flags)
+            if on_card:
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = sorted(walls)[1]
+        decode_ms = (wall * 1e3 - prefill_ms) / new
+        prof = {
+            "prefill": device_profile(lambda: generate(
+                model, cfg, prompt, 0, max_len=prompt_len + new, flags=kernel_flags)),
+            "prefill_and_4_steps": device_profile(lambda: generate(
+                model, cfg, prompt, 4, max_len=prompt_len + new, flags=kernel_flags)),
+        } if profile else None
+        with torch.inference_mode():
+            cache = extend_cache(cfg, make_prefill_step(cfg, kernel_flags)(model, prompt)[1],
+                                 prompt_len + new)
+        cache_devices = sorted({str(t.device) for c in cache for t in c.values()})
+        bound_ms, bound_bytes = decode_bound_ms(model, cfg, cache, batch)
+        del cache
+        want = moe_want_launches(cfg, 1 + new)
+        summary = dict(
+            model=name, layers=n_layers, held_layers=held,
+            reduced={"n_layers": [ARCHS[name].n_layers, n_layers]} if name in ARCHS else None,
+            d_model=cfg.d_model, experts=cfg.n_experts, top_k=cfg.top_k, expert_d_ff=cfg.moe_d_ff,
+            params=n_params, param_counts_total=cfg.param_counts()["total"],
+            capacity={"prefill": capacity(batch * prompt_len, cfg), "decode": capacity(batch, cfg)},
+            batch=batch, prompt=prompt_len, new_tokens=new, allocated_before=allocated_before,
+            init_s=init_s, wall_s=wall, tokens_per_s=batch * new / wall, prefill_ms=prefill_ms,
+            prefill_ms_runs=walls, decode_ms_per_step=decode_ms, decode_bound_ms=bound_ms,
+            decode_bound_bytes=bound_bytes, decode_bound_share=bound_ms / decode_ms,
+            max_memory_allocated=peak, launches=launches, want_launches=want, routes=routes,
+            sync_free=on_card, params_device=str(model.device), cache_devices=cache_devices,
+            card=card, profile=prof,
+        )
+        if on_card:
+            if model.device.type != "cuda" or cache_devices != ["cuda:0"]:
+                fail("serve_moe", "the model or its cache is not on the card", **summary)
+            if launches != want:
+                fail("serve_moe", "kernel launches differ from the count the stack makes", **summary)
+            if (routes["flash"]["tensor_cores"] != want["flash"]
+                    or routes["ssd"]["tensor_cores"] != want["ssd"]):
+                fail("serve_moe", "flash or SSD launches off the tensor-core route", **summary)
+        finite = all(bool(torch.isfinite(t).all()) for t in (last, first))
+        valid = tokens.shape == (batch, new) and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+        if not (finite and valid):
+            fail("serve_moe", "non-finite logits or invalid token ids", finite=finite, valid=valid,
+                 **summary)
+
+        # the kernel path against the plain path on the same weights: each
+        # layer alone from the same input (the bar on the tokens routed
+        # alike held; every MoE layer's flips held where ``held``, else
+        # reported: 128 experts top-8 sit closer at the boundary); then end
+        # to end, where a flip upstream reaches every later position of its
+        # sequence and flips near-ties there, so the share compounds with
+        # depth: the first ``held`` layers held (flips at every MoE layer,
+        # the bar where every token up to the position was routed alike),
+        # all the layers reported
+        layerwise = moe_layer_compare(model, cfg, prompt, kernel_flags)
+        compare = {"all": moe_path_compare(model, cfg, prompt, kernel_flags, n_layers)}
+        if 0 < held < n_layers:
+            compare["held"] = moe_path_compare(model, cfg, prompt, kernel_flags, held)
+        elif held:
+            compare["held"] = compare["all"]
+        summary.update(layerwise=layerwise, plain=compare,
+                       bar={"atol": SERVE_ATOL, "rtol": SERVE_RTOL}, flip_max=MOE_FLIP_MAX,
+                       seconds=time.perf_counter() - t_phase)
+        if held and max(r.get("set", 0.0) for r in layerwise) > MOE_FLIP_MAX:
+            fail("serve_moe", f"{name}: a layer alone flips the routing of more than "
+                 f"{MOE_FLIP_MAX} of its tokens", **summary)
+        if not all(r["within_bar_routed_alike"] for r in layerwise):
+            fail("serve_moe", f"{name}: a layer's kernel path disagrees with its plain path on "
+                 "tokens routed alike", **summary)
+        if held and compare["held"]["max_set_flip"] > MOE_FLIP_MAX:
+            fail("serve_moe", f"{name}: routing flips between the kernel and the plain path "
+                 f"above {MOE_FLIP_MAX}", **summary)
+        if held and not compare["held"]["within_bar_clean"]:
+            fail("serve_moe", f"{name}: the kernel path disagrees with the plain path where "
+                 "every token up to the position was routed alike", **summary)
+        emit("serve_moe", ok=True, **summary)
+        out[name] = launches
+        del model, lp, tokens, last, first, prompt
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
 # ---- the training path: flash's Function under autograd, Qwen3-1.7B training ----
 FLASH_GRAD_SHAPES = (  # (b, s, h, kh, dh, dtype): the training shape, a CUDA-core f32, a reduced bf16
     (4, 2048, 16, 8, 128, "bfloat16"), (2, 1024, 8, 4, 64, "float32"), (2, 256, 4, 2, 32, "bfloat16"))
@@ -2320,10 +2661,17 @@ def main() -> int:
 
     flash = flash_phases(card, flash_build)
     ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
+    moe = serve_moe_phase(card)
+    jamba, qwen_moe = moe["jamba-v0.1-52b"], moe["qwen3-moe-235b-a22b"]
     flash.update(flash_grad_phase(card))
     train_launches = train_phase(card)
-    flash["launches_by_path"] = {"serve": flash["launches"], "train_step": train_launches["flash"]}
+    flash["launches_by_path"] = {"serve": flash["launches"], "serve_moe": jamba["flash"],
+                                 "serve_moe_qwen3": qwen_moe["flash"],
+                                 "train_step": train_launches["flash"]}
+    ssd_entry["launches_by_path"] = {"serve_mamba": ssd_entry["launches"], "serve_moe": jamba["ssd"]}
     rms_entry["launches_by_path"] = {"serve_mamba": rms_entry["launches"],
+                                     "serve_moe": jamba["rmsnorm"],
+                                     "serve_moe_qwen3": qwen_moe["rmsnorm"],
                                      "train_step": train_launches["rmsnorm"]}
 
     # ---- kernels -------------------------------------------------------------

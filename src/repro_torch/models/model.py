@@ -16,8 +16,8 @@ Parameters live in a :class:`Model`, a module tree that mirrors the
 reference's pytree key for key, one entry of ``layers`` per layer (the
 reference stacks each cycle position over cycles). Everything runs on the
 device of the parameters; the constructors default to CUDA and raise
-without it. Attention and Mamba-2 blocks are ported; MoE layers are not yet
-and raise ``NotImplementedError``.
+without it. Every block kind of the reference is ported: attention and
+Mamba-2 sequence mixers, dense and MoE channel mixers (``models.moe``).
 
 Two ``RunFlags`` switches send the stack through the port's CUDA kernels
 (their plain versions on CPU tensors): ``ssd_impl="kernel"`` runs every
@@ -62,18 +62,19 @@ from .layers import (
     rms_norm,
 )
 from .mamba2 import mamba2_cache_init, mamba2_decode, mamba2_init, mamba2_prefill
-
-MOE_TODO = "MoE layers are not ported yet (ROADMAP queue 1: models/moe.py)"
+from .moe import moe_apply, moe_init
 
 _F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Per-call execution knobs: the reference's attention knobs, ``remat``
-    and ``ssd_chunk``, and the port's kernel switches ``ssd_impl`` and
-    ``norm_impl`` (module docstring). The reference's ``moe_impl`` comes
-    with the MoE slice."""
+    """Per-call execution knobs: the reference's attention knobs, ``remat``,
+    ``ssd_chunk`` and ``moe_impl``, and the port's kernel switches
+    ``ssd_impl`` and ``norm_impl`` (module docstring). ``moe_impl`` accepts
+    the reference's two values; the reference takes its dense path
+    whenever no mesh is set, and the port has no mesh, so ``"shard_map"``
+    computes the dense result."""
 
     attn_impl: str = "auto"  # "auto" | "full" | "blockwise" | "kernel"
     q_block: int = 512
@@ -82,6 +83,7 @@ class RunFlags:
     ssd_chunk: int = 64
     ssd_impl: str = "reference"  # "reference" | "kernel"
     norm_impl: str = "reference"  # "reference" | "kernel"
+    moe_impl: str = "dense"  # "dense" | "shard_map" (the dense path: no mesh)
 
 
 def norm_fn(flags: RunFlags) -> Callable:
@@ -92,6 +94,12 @@ def norm_fn(flags: RunFlags) -> Callable:
     if flags.norm_impl == "kernel":
         return rmsnorm
     raise ValueError(f"unknown norm_impl {flags.norm_impl!r}")
+
+
+def _moe_fn(flags: RunFlags) -> Callable:
+    if flags.moe_impl not in ("dense", "shard_map"):
+        raise ValueError(f"unknown moe_impl {flags.moe_impl!r}")
+    return moe_apply
 
 
 def _ssd_fn(flags: RunFlags, s: int) -> Callable:
@@ -176,16 +184,15 @@ class Model(ParamTree):
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=None) -> Model:
     """Random weights with the reference's distributions: matrices normal ×
     1/√fan_in, the embedding normal × 0.02, the untied LM head normal /
-    √d_model, norms zero, the Mamba-2 blocks as ``mamba2.mamba2_init``;
-    drawn in f32 from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (CUDA by default), then cast to ``dtype``."""
-    if cfg.has_moe():
-        raise NotImplementedError(MOE_TODO)
+    √d_model, norms zero, the Mamba-2 blocks as ``mamba2.mamba2_init`` and
+    the MoE layers as ``moe.moe_init`` (the router f32); drawn in f32 from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA by
+    default), then cast to ``dtype``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, dtype=_F32, device=dev) * scale).to(dtype)
+    def normal(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=gen, dtype=_F32, device=dev) * scale).to(dt)
 
     def zeros(n):
         return torch.zeros(n, dtype=dtype, device=dev)
@@ -205,12 +212,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
         else:
             mixer = mamba2_init(normal, cfg, dtype, dev)
         layer = {"norm1": zeros(d), "mixer": mixer}
-        if cfg.mlp_kind_at(i % cfg.cycle_len) == "dense":
+        mk = cfg.mlp_kind_at(i % cfg.cycle_len)
+        if mk == "dense":
             mlp = {"wi_gate": normal((d, ff), 1.0 / math.sqrt(d)),
                    "wo": normal((ff, d), 1.0 / math.sqrt(ff))}
             if cfg.mlp_kind != "gelu":
                 mlp["wi_up"] = normal((d, ff), 1.0 / math.sqrt(d))
             layer["norm2"], layer["mlp"] = zeros(d), mlp
+        elif mk == "moe":
+            layer["norm2"], layer["mlp"] = zeros(d), moe_init(normal, cfg, dtype, dev)
         layers.append(layer)
     tree: Dict[str, Any] = {"layers": layers, "final_norm": zeros(d)}
     if cfg.input_mode == "tokens":
@@ -316,21 +326,24 @@ def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_posi
     return _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
 
 
-def _mlp(pos: int, p, x, cfg: ModelConfig, norm: Callable):
+def _mlp(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, norm: Callable):
+    """The channel mixer with its residual: (x, the MoE aux loss, or None
+    where the position has no MoE layer)."""
     mk = cfg.mlp_kind_at(pos)
-    if mk == "moe":
-        raise NotImplementedError(MOE_TODO)
     if mk == "dense":
         x = x + mlp_apply(p["mlp"], norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_kind)
-    return x
+    elif mk == "moe":
+        y, aux = _moe_fn(flags)(p["mlp"], norm(x, p["norm2"], cfg.norm_eps), cfg)
+        return x + y, aux
+    return x, None
 
 
 def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions,
                want_cache: bool):
-    """One layer over the sequence: (x, its decode cache or None). A Mamba-2
-    layer's cache comes from ``mamba2_prefill``, which takes the final SSM
-    state from the layer's one SSD call (the reference's
-    ``_mamba_prefill_cache`` recomputes it)."""
+    """One layer over the sequence: (x, its decode cache or None, its MoE
+    aux loss or None). A Mamba-2 layer's cache comes from
+    ``mamba2_prefill``, which takes the final SSM state from the layer's one
+    SSD call (the reference's ``_mamba_prefill_cache`` recomputes it)."""
     norm = norm_fn(flags)
     normed = norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_kinds[pos] == "attn":
@@ -338,17 +351,21 @@ def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mro
     else:
         h, cache = mamba2_prefill(p["mixer"], normed, cfg, _ssd_fn(flags, x.shape[1]), norm)
         cache = cache if want_cache else None
-    return _mlp(pos, p, x + h, cfg, norm), cache
+    x, aux = _mlp(pos, p, x + h, cfg, flags, norm)
+    return x, cache, aux
 
 
 def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_positions,
-                  norm: Callable):
+                  flags: RunFlags):
+    """One layer on one token; the MoE aux loss is dropped, as in the
+    reference."""
+    norm = norm_fn(flags)
     h = norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_kinds[pos] == "attn":
         h = _attn_decode(p["mixer"], h, cfg, cache, cur_index, mrope_positions, norm)
     else:
         h, _ = mamba2_decode(p["mixer"], h, cache, cfg, norm)
-    return _mlp(pos, p, x + h, cfg, norm)
+    return _mlp(pos, p, x + h, cfg, flags, norm)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +394,10 @@ def _head(p, cfg: ModelConfig, x: torch.Tensor, norm: Callable = rms_norm) -> to
 # public entry points
 # ---------------------------------------------------------------------------
 def _sequence(p, cfg: ModelConfig, batch, flags: RunFlags, compute_dtype, want_cache: bool):
-    """Embed and run every layer: (hidden pre-final-norm, per-layer caches).
-    Under autograd each cycle (``cfg.cycle_len`` layers) is one unit of
-    ``flags.remat``; caches come only from runs without it."""
+    """Embed and run every layer: (hidden pre-final-norm, per-layer caches,
+    the MoE aux loss summed over layers in order, f32). Under autograd each
+    cycle (``cfg.cycle_len`` layers) is one unit of ``flags.remat``, the aux
+    one of its outputs; caches come only from runs without it."""
     x = _embed(p, cfg, batch, compute_dtype)
     b, s, _ = x.shape
     positions = batch.get("positions")
@@ -387,19 +405,22 @@ def _sequence(p, cfg: ModelConfig, batch, flags: RunFlags, compute_dtype, want_c
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     mrope_positions = batch.get("mrope_positions")
 
-    def cycle_body(x, layers):
+    def cycle_body(x, aux, layers):
         caches = []
         for pos, lp in enumerate(layers):
-            x, cache = _block_seq(pos, lp, x, cfg, flags, positions, mrope_positions, want_cache)
+            x, cache, a = _block_seq(pos, lp, x, cfg, flags, positions, mrope_positions, want_cache)
             caches.append(cache)
-        return x, caches
+            if a is not None:  # the reference adds an exact 0 for the other layers
+                aux = aux + a
+        return x, aux, caches
 
     body = _remat(cycle_body, "none" if want_cache else flags.remat)
     cl, caches = cfg.cycle_len, []
+    aux = torch.zeros((), dtype=_F32, device=x.device)
     for c in range(0, len(p["layers"]), cl):
-        x, cycle_caches = body(x, p["layers"][c:c + cl])
+        x, aux, cycle_caches = body(x, aux, p["layers"][c:c + cl])
         caches += cycle_caches
-    return x, (caches if want_cache else None)
+    return x, (caches if want_cache else None), aux
 
 
 def forward(
@@ -411,10 +432,10 @@ def forward(
     want_cache: bool = False,
 ):
     """Sequence-mode forward: returns (logits f32, aux, per-layer cache or
-    None). ``aux`` (the MoE load-balancing loss) is 0 for dense stacks."""
+    None). ``aux`` is the MoE load-balancing loss summed over the MoE
+    layers (0 for the other stacks)."""
     p = cast_params(params, compute_dtype)
-    x, caches = _sequence(p, cfg, batch, flags, compute_dtype, want_cache)
-    aux = torch.zeros((), dtype=_F32, device=x.device)
+    x, caches, aux = _sequence(p, cfg, batch, flags, compute_dtype, want_cache)
     return _head(p, cfg, x, norm_fn(flags)), aux, caches
 
 
@@ -428,9 +449,8 @@ def forward_hidden(
     """Forward without the LM head: (hidden (B, S, D) after the final norm,
     aux)."""
     p = cast_params(params, compute_dtype)
-    x, _ = _sequence(p, cfg, batch, flags, compute_dtype, False)
-    hidden = norm_fn(flags)(x, p["final_norm"], cfg.norm_eps)
-    return hidden, torch.zeros((), dtype=_F32, device=x.device)
+    x, _, aux = _sequence(p, cfg, batch, flags, compute_dtype, False)
+    return norm_fn(flags)(x, p["final_norm"], cfg.norm_eps), aux
 
 
 def head_matrix(params: Model, cfg: ModelConfig, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -479,13 +499,12 @@ def decode_step(
 ) -> Tuple[torch.Tensor, List[dict]]:
     """One new token against the cache at position ``cur_index``. Returns
     (logits (B, 1, V) f32, cache); the cache is updated in place and the
-    same list is returned. Of ``flags`` only ``norm_impl`` applies: decode
-    attention and the one-token SSD update are plain torch, as in the
-    reference."""
+    same list is returned. Of ``flags`` only ``norm_impl`` and ``moe_impl``
+    apply: decode attention and the one-token SSD update are plain torch,
+    as in the reference."""
     p = cast_params(params, compute_dtype)
     x = _embed(p, cfg, batch, compute_dtype)
     mrope_positions = batch.get("mrope_positions")
-    norm = norm_fn(flags)
     for i, lp in enumerate(p["layers"]):
-        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions, norm)
-    return _head(p, cfg, x, norm), cache
+        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions, flags)
+    return _head(p, cfg, x, norm_fn(flags)), cache

@@ -156,7 +156,7 @@ def make_prefill_step(cfg: ModelConfig, flags: RunFlags):
         position only: it is row-wise, so those logits are the full
         forward's."""
         p = cast_params(params, torch.bfloat16)
-        x, cache = _sequence(p, cfg, batch, flags, torch.bfloat16, True)
+        x, cache, _ = _sequence(p, cfg, batch, flags, torch.bfloat16, True)
         return _head(p, cfg, x[:, -1:], norm_fn(flags))[:, -1], cache
 
     return prefill_step

@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 # the gpu-marked tests run where there is no JAX
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
                   "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
-                  "test_torch_gpu_serve.py", "test_torch_gpu_train.py")
+                  "test_torch_gpu_serve.py", "test_torch_gpu_train.py", "test_torch_gpu_moe.py")
 
 
 def port_sources(ext=".py"):
@@ -45,7 +45,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(files) > 40, files  # the scan sees the whole package
     for module in ("serve/scheduler.py", "serve/store.py", "core/campaign.py",
                    "core/event_sim.py", "runtime/health.py",
-                   "models/model.py", "models/mamba2.py", "launch/serve.py",
+                   "models/model.py", "models/mamba2.py", "models/moe.py", "launch/serve.py",
                    "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
                    "configs/registry.py", "kernels/_build.py", "models/flash_ref.py",
                    "optim/adamw.py", "optim/compress.py", "train/step.py", "data/pipeline.py",
