@@ -45,7 +45,19 @@ Phases, each printing one JSON line:
                dispatches, cached blocks, kernel launches (one per
                iteration plus the winner's decode), beside main_path's
                sims/s; the best design re-priced by the scalar simulator
-  6c. serve_dse  DseService on the card with a DesignStore, ar_complex,
+  6c. analysis the port's analysis gate, run_all(device="cuda") of
+               repro_torch.analysis: the layout contracts (the scal columns
+               against the CUDA source, the chain carry, the move codes, the
+               policy registry), the torch lint of the hot scopes, and the
+               launch audit (phase_sim_plain, an R = 4, K = 8 chain block and
+               ops.phase_sim under an op log; the block exactly K launches,
+               its K iterations under sync-debug "error", no synchronisation
+               or device-to-host copy in its profiled window, the kernel's
+               symbol in the trace; the wrapper exactly 1 launch; the bucket
+               grid's 100 keys): live findings per pass (any fails the run),
+               the key counts, the launches (zeroed just before, read just
+               after), and the seconds
+  6d. serve_dse  DseService on the card with a DesignStore, ar_complex,
                calibrated budget: the reference's repeated scenario, 64
                sessions (16 replicas × farsi, naive_sa, bottleneck,
                locality; seed rep % 4; 60 iterations),
@@ -63,13 +75,13 @@ Phases, each printing one JSON line:
                same run under the profiler; then the same 64 host-loop
                sessions with 64 distinct seeds (no repeats, no chain
                session), with the same numbers and checks bar the replicas
-  6d. serve_chaos  8 sessions under FaultInjector(seed=7) at the reference
+  6e. serve_chaos  8 sessions under FaultInjector(seed=7) at the reference
                chaos sweep's combined rates, twice: identical schedules,
                counters and results; the sessions the injector never touched
                equal a fault-free run bit for bit; nothing escapes run();
                a phase-sim launch made to raise fails its session with
                DispatchFailed, nothing degraded to the CPU fallback
-  6e. campaign Campaign on audio and ar_complex, seeds 0-1, farsi, naive_sa
+  6f. campaign Campaign on audio and ar_complex, seeds 0-1, farsi, naive_sa
                and bottleneck, 60 iterations, with and without the
                DesignStore: runs identical; wall, dispatches, launches, cache
   7. flash_build   nvcc build of the flash kernel (started in parallel with
@@ -651,6 +663,41 @@ def chain_phases(card: str, db, bud, main_sims_per_s: float) -> dict:
     emit("chain_explore", ok=True, **summary)
     return {"chain": {f"R={p['r']}": p["launches_per_block"][-1] for p in per_r},
             "chain_explore": explore_launches}
+
+
+def analysis_phase(card: str) -> int:
+    """Phase ``analysis``: the port's analysis gate on the card,
+    ``run_all(device="cuda")``. Any live finding fails the run. Returns the
+    phase-sim launches the gate made (the audited chain block's and the
+    wrapper's, each warmed, audited and profiled)."""
+    import torch
+
+    from repro_torch.analysis import PASSES, run_all
+    from repro_torch.analysis.launch_audit import CHAIN_K
+    from repro_torch.kernels.phase_sim import kernel as K
+
+    torch.cuda.synchronize()
+    K.phase_sim_cuda.launches = 0
+    report = {}
+    t0 = time.perf_counter()
+    findings = run_all(device="cuda", report=report)
+    seconds = time.perf_counter() - t0
+    launches = K.phase_sim_cuda.launches
+    live = [f for f in findings if f.live]
+    summary = dict(
+        live_per_pass={p: sum(f.pass_name == p for f in live) for p in PASSES},
+        suppressed=sum(f.suppressed for f in findings),
+        baselined=sum(f.baselined for f in findings),
+        bucket_grid=report.get("bucket_grid"), phase_sim_plain=report.get("phase_sim_plain"),
+        chain_block=report.get("chain_block"), wrapper=report.get("ops.phase_sim"),
+        launches=launches, seconds=seconds, card=card,
+    )
+    if live:
+        fail("analysis", "live findings", findings=[f.render() for f in live], **summary)
+    if summary["chain_block"]["launches"] != CHAIN_K or summary["wrapper"]["launches"] != 1:
+        fail("analysis", "the audit's launch counts are off", **summary)
+    emit("analysis", ok=True, **summary)
+    return launches
 
 
 # ---- the serve layer: DseService, the design cache, chaos, Campaign ----------------
@@ -2657,6 +2704,7 @@ def main() -> int:
     emit("golden", ok=True, cells=replayed)
 
     chain_launches = chain_phases(card, db, bud, summary["sims_per_s"])
+    analysis_launches = analysis_phase(card)
     serve_launches = serve_phases(card, db, bud, summary["sims_per_s"])
 
     flash = flash_phases(card, flash_build)
@@ -2686,7 +2734,7 @@ def main() -> int:
         # chain block at each R (one launch per iteration), then run_chains
         "launches_by_path": {"main_path": main_launches, "chain_block": chain_launches["chain"],
                              "chain_explore": chain_launches["chain_explore"],
-                             **serve_launches},
+                             "analysis": analysis_launches, **serve_launches},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": ms,

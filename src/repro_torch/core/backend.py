@@ -42,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict, Iterator, List, Optional, Protocol, Sequence, runtime_checkable
+from typing import Dict, Iterator, List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -546,6 +546,14 @@ def _bucket(n: int) -> int:
     neighbour batches are ≤ 4 candidates, and padding them to 8 would double
     the rows every serial iteration prices."""
     return max(4, _pow2(n))
+
+
+def _buffer_key(b: int, slots: int, n_noc: int) -> Tuple[int, int, int]:
+    """The row-buffer key of a dispatch of ``b`` candidates needing
+    ``slots`` slot columns (at least the task count) and ``n_noc`` NoCs:
+    batch and slots bucketed, the NoC chain to a power of two without a
+    floor. ``n_compiles`` counts these keys."""
+    return _bucket(b), _bucket(slots), max(1, _pow2(n_noc))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -1100,11 +1108,10 @@ class TorchBatchedBackend:
         all_encs = list(base_encs.values())
         all_encs.extend(eds)
         need = max(max(e.pe_peak.shape[0], e.mem_bw.shape[0]) for e in all_encs)
-        slots = _bucket(max(need, len(self._enc.names)))
-        n_noc = max(1, _pow2(max(e.noc_bw.shape[0] for e in all_encs)))
         b = len(batch)
-        b_pad = _bucket(b)
-        key = (b_pad, slots, n_noc)
+        key = _buffer_key(b, max(need, len(self._enc.names)),
+                          max(e.noc_bw.shape[0] for e in all_encs))
+        b_pad, slots, n_noc = key
         pair = self._buffers.get(key)
         if pair is None:
             pair = self._buffers[key] = [None, None]

@@ -659,7 +659,7 @@ class _ChainBlock:
             s[nk] = self._set(s[nk], cols, ai, d)
         return c._replace(**s)
 
-    def _step(self, c: ChainCarry, tab: Dict[str, torch.Tensor],
+    def _step(self, c: ChainCarry, tab: Dict[str, torch.Tensor],  # repro_torch: hot
               rows_static: Dict[str, torch.Tensor], temp_pos, temp_den,
               noise: torch.Tensor, u: torch.Tensor):
         """One iteration; ``noise`` (R, M) and ``u`` (R,) are its Gumbel
@@ -768,7 +768,7 @@ class _ChainBlock:
             "a_pe": arg.clamp(0, cap_pe - 1), "a_mem": arg.clamp(0, cap_mem - 1),
             "d_pe": dest.clamp(0, cap_pe - 1), "d_mem": dest.clamp(0, cap_mem - 1),
             "step_r": (2 * dest.clamp(0, 1) - 1)[None, :],
-            "is_kind": [(kind == code)[None, :] for code in range(10)],
+            "is_kind": [(kind == code)[None, :] for code in range(len(_KIND_PRECEDENCE))],
             "is_pe_cls": (kind % 2 == 0)[None, :],
             "is_task_arg": (kind <= MV_FORK_MEM)[None, :],
             "prec_log": self.prec_log[kind][None, :],
@@ -784,17 +784,23 @@ class _ChainBlock:
         temp = torch.from_numpy(temps).to(dev)
         temp_pos = temp > 0
         temp_den = torch.clamp(temp, min=float(np.float32(1e-9)))
-        mv, acc, ft = [], [], []
         with loop_guard():
-            key, noise, u = block_draws(carry.key, k, n_moves)
-            c = carry._replace(key=key)
-            for s in range(k):
-                c, m, ok, fit = self._step(c, tab, rows_static, temp_pos[s], temp_den[s],
-                                           noise[s], u[s])
-                mv.append(m)
-                acc.append(ok)
-                ft.append(fit)
-            return c, torch.stack(mv, 1), torch.stack(acc, 1), torch.stack(ft, 1)
+            return self._iterate(carry, tab, rows_static, temp_pos, temp_den, n_moves)
+
+    def _iterate(self, carry: ChainCarry, tab: Dict[str, torch.Tensor],  # repro_torch: hot
+                 rows_static: Dict[str, torch.Tensor], temp_pos, temp_den, n_moves: int):
+        """The K iterations alone: the block's draws, then K steps. Returns
+        the final carry and the (R, K) move, accept and fitness traces."""
+        key, noise, u = block_draws(carry.key, self.k, n_moves)
+        c = carry._replace(key=key)
+        mv, acc, ft = [], [], []
+        for s in range(self.k):
+            c, m, ok, fit = self._step(c, tab, rows_static, temp_pos[s], temp_den[s],
+                                       noise[s], u[s])
+            mv.append(m)
+            acc.append(ok)
+            ft.append(fit)
+        return c, torch.stack(mv, 1), torch.stack(acc, 1), torch.stack(ft, 1)
 
 
 class DeviceChainRunner:

@@ -673,7 +673,7 @@ def from_reference(
     return enc, rows_to({k: np.asarray(rows[k]) for k in ROW_KEYS}, device)
 
 
-def phase_sim_plain(
+def phase_sim_plain(  # repro_torch: hot
     w: WorkloadTensors, rows: Dict[str, torch.Tensor], t_real: int
 ) -> Dict[str, torch.Tensor]:
     """Phase simulation + device-side Eq.-7 scoring of a batch of rows.

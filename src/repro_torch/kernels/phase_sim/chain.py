@@ -30,7 +30,7 @@ from .ops import phase_sim
 __all__ = ["resimulate_chains"]
 
 
-def resimulate_chains(
+def resimulate_chains(  # repro_torch: hot
     enc: EncodedWorkload, rows: Dict[str, torch.Tensor]
 ) -> Dict[str, torch.Tensor]:
     """Price the R mutated chain encodings of one accept-loop iteration.

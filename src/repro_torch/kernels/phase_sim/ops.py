@@ -57,7 +57,7 @@ def pack_plain(out: Dict[str, torch.Tensor], t: int) -> torch.Tensor:
     )
 
 
-def phase_sim_rows(
+def phase_sim_rows(  # repro_torch: hot
     enc: EncodedWorkload,
     rows: Dict[str, torch.Tensor],
     *,
@@ -117,7 +117,8 @@ def unpack(packed: torch.Tensor, enc: EncodedWorkload, s_pe: int, s_mem: int,
     }
 
 
-def phase_sim(enc: EncodedWorkload, rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def phase_sim(enc: EncodedWorkload,  # repro_torch: hot
+              rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Kernel counterpart of ``simulate_batch`` (same contract)."""
     packed = phase_sim_rows(enc, rows)
     return unpack(packed, enc, rows["pe_peak"].shape[1], rows["mem_bw"].shape[1],

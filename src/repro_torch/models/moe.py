@@ -52,7 +52,8 @@ def moe_init(normal: Callable, cfg: ModelConfig, dtype, device) -> dict:
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
     """Rows per expert: ⌈T·k·factor/E⌉, at least k and at most T."""
-    c = int(math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+    c = math.ceil(  # repro_torch: noqa[f64-promote]: Python numbers, so a static capacity
+        n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
     return max(cfg.top_k, min(c, n_tokens))
 
 
@@ -72,7 +73,8 @@ def record_routing() -> Iterator[List[dict]]:
         _RECORD = outer
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (y (B, S, D), the Switch load-balancing loss, f32
     scalar). Static capacity ``capacity(B·S, cfg)``."""
     b, s, d = x.shape

@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 # the gpu-marked tests run where there is no JAX
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
                   "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
-                  "test_torch_gpu_serve.py", "test_torch_gpu_train.py", "test_torch_gpu_moe.py")
+                  "test_torch_gpu_serve.py", "test_torch_gpu_train.py", "test_torch_gpu_moe.py",
+                  "test_torch_gpu_analysis.py")
 
 
 def port_sources(ext=".py"):
