@@ -11,8 +11,9 @@ full width and depth (``generate``: prefill and greedy decode) through the
 CUDA flash-attention kernel; serving Mamba2-370m at full width and depth
 through the CUDA SSD and RMSNorm kernels; serving the MoE stacks at full
 width (Jamba, one whole 8-layer cycle, through all three LLM kernels, and
-four layers of Qwen3-MoE); and training Qwen3-1.7B at full width and depth
-with the flash and RMSNorm kernels in the forward pass under autograd.
+four layers of Qwen3-MoE); training Qwen3-1.7B at full width and depth
+with the flash and RMSNorm kernels in the forward pass under autograd; and
+training one full-width layer of Qwen3-MoE the same way.
 Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
@@ -127,8 +128,9 @@ Phases, each printing one JSON line:
  13. rmsnorm_parity  RMSNorm kernel vs its plain version: test_kernels.py's
                    shapes, (2048, 1024), (2048, 2048), (4, 1024), (4, 2048),
                    a ragged (1000, 1024), an odd (33, 1001), qk-norm's
-                   (32768, 128), (16, 8192), (4, 12288), and x one element
-                   past 16-byte alignment; f32, bf16, bf16 with an f32
+                   (32768, 128), (16, 8192), (4, 12288), train_moe's
+                   d_model rows (4096, 4096), and x one element past
+                   16-byte alignment; f32, bf16, bf16 with an f32
                    weight; <= 1e-5 (f32) / 2e-2 (bf16)
  14. ssd_timing    kernel (ssd_cuda), ops.ssd and plain-version times beside
                    the bound at the serving shape (bf16, chunk 64) and at
@@ -179,9 +181,10 @@ Phases, each printing one JSON line:
                with the row lse, the plain flash backward) against
                flash_ref.FlashAttentionRef (plain forward and backward) on
                the card: out at FLASH_TOL, lse within 1e-5 and dq, dk, dv
-               within FLASH_TOL of their max |value|; the training shape
-               (B=4, S=2048, H=16, KH=8, Dh=128, bf16, tensor cores), an
-               f32 shape at Dh 64 and a bf16 one at Dh 32 (CUDA cores); the
+               within FLASH_TOL of their max |value|; the training shapes
+               (train: B=4, S=2048, H=16, KH=8; train_moe: B=2, S=2048,
+               H=64, KH=4, a GQA group of 16; Dh=128, bf16, tensor cores),
+               an f32 shape at Dh 64 and a bf16 one at Dh 32 (CUDA cores); the
                forward with and without the lse at the serving and the
                training shape, in turns; the plain backward; SDPA's forward
                and backward at the training shape
@@ -192,23 +195,49 @@ Phases, each printing one JSON line:
                counted (zeroed just before, read just after: 56 flash, all
                tensor cores, and 225 RMSNorm), the same step from the same
                state and batch on the plain path (blockwise, reference norm;
-               loss within 2e-2, grad norm 5e-2, every parameter 2.5 lr);
+               loss within 2e-2, grad norm 5e-2, each leaf's gradient
+               ‖Δg‖/‖g‖ within 0.1 through the first moments, every
+               parameter 2.5 lr);
                8 steps under the Supervisor with an async CheckpointManager
                (save_every 3, a temporary directory), then the same run with
                a fault injected once at step 5: one recovery, the loss trace
                bit for bit the uninterrupted one's (both runs under
                torch.use_deterministic_algorithms); step wall (synchronised,
                median after the first), tokens/s, peak memory, losses and
-               grad norms, model FLOPs with and without the recompute and
-               their share of the bf16 peak, one step under the profiler
-               (busy share, top kernels)
+               grad norms, model FLOPs (roofline.analytic.model_flops) with
+               and without the recompute (× 4/3) and their share of the bf16
+               peak, one step under the profiler (busy share, top kernels)
+ 18b. train_moe  Qwen3-MoE cut from 94 layers to 1 at full width (128
+               experts top-8 at F 1,536, 64:4 GQA, qk-norm, untied 151,936
+               embedding and head; 3.73 B parameters, f32 master weights and
+               AdamW moments), SyntheticLM at seq 2048 and global batch 2
+               (capacity 320 an expert), remat="full", microbatches=1,
+               attn_impl and norm_impl "kernel": one MoE layer's forward and
+               backward at that shape under torch.cuda.set_sync_debug_mode(
+               "error"); 6 steps in a plain loop (no Supervisor, no
+               checkpoint), the first with its launches counted (zeroed just
+               before, read just after: 2 flash, all tensor cores, and 9
+               RMSNorm): step wall (synchronised, median of steps 2-6),
+               tokens/s, peak memory, losses finite and falling, model FLOPs
+               and their share of the bf16 peak with and without the
+               recompute, and without the untied embedding lookup (6 · V
+               · D · tokens of the count: a gather); one step under the
+               profiler; under
+               torch.use_deterministic_algorithms, each order-sensitive MoE
+               op (dispatch index_add, position cumsum, gather backward) and
+               one whole step reported as "ok" or the error it raises; then
+               end to end, one step on the kernel path against the same
+               step from the same state and batch on the plain path at 64
+               experts (the kernel step's parameters and moments moved to
+               the host first; the train phase's bars; routing flips per
+               MoE layer, those of the 64-expert model)
  19. kernels   one line per ported kernel (launches, error, times, bound;
                flash and SSD also their launches per route; phase-sim its
                launches per path, the serve phases' among them; flash, SSD
                and RMSNorm their launches in each serving run (serve_moe:
                Jamba's, and Qwen3-MoE's as serve_moe_qwen3) and flash and
-               RMSNorm in one train step, flash its forward times with the
-               lse)
+               RMSNorm in one train step of each train phase, flash its
+               forward times with the lse)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object.
@@ -1410,9 +1439,11 @@ SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chun
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
 # tests/test_kernels.py's shapes, serve_mamba's prefill and decode rows, a ragged count
 # an odd width, Qwen3's qk-norm rows (d = 128 over B*S*H rows), wide rows
-# (d = 8192, Mistral's 12288: a block per row)
+# (d = 8192, Mistral's 12288: a block per row), train_moe's d_model rows (B*S = 4096
+# rows of Qwen3-MoE's 4096)
 RMS_SHAPES = [(64, 128), (2, 32, 64), (256, 512), (2048, 1024), (2048, 2048), (4, 1024),
-              (4, 2048), (1000, 1024), (33, 1001), (32768, 128), (16, 8192), (4, 12288)]
+              (4, 2048), (1000, 1024), (33, 1001), (32768, 128), (16, 8192), (4, 12288),
+              (4096, 4096)]
 RMS_MISALIGNED = ((2048, 1024), (33, 1001), (4, 12288))  # x one element past 16-byte alignment
 RMS_HOST_CALLS = 200  # calls per host-cost sample (well inside the launch queue)
 RMS_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"))  # x, w
@@ -2106,11 +2137,17 @@ def serve_moe_phase(card: str, models=None, device="cuda", batch=SERVE_BATCH,
 
 
 # ---- the training path: flash's Function under autograd, Qwen3-1.7B training ----
-FLASH_GRAD_SHAPES = (  # (b, s, h, kh, dh, dtype): the training shape, a CUDA-core f32, a reduced bf16
-    (4, 2048, 16, 8, 128, "bfloat16"), (2, 1024, 8, 4, 64, "float32"), (2, 256, 4, 2, 32, "bfloat16"))
+FLASH_GRAD_SHAPES = (  # (b, s, h, kh, dh, dtype): the train and the train_moe shape (Qwen3-MoE's
+    # 64:4, a GQA group of 16), a CUDA-core f32, a reduced bf16
+    (4, 2048, 16, 8, 128, "bfloat16"), (2, 2048, 64, 4, 128, "bfloat16"), (2, 1024, 8, 4, 64, "float32"),
+    (2, 256, 4, 2, 32, "bfloat16"))
 LSE_TOL = 1e-5  # max|kernel - plain| / max|plain|: both take the lse in f32 from the same scores
 TRAIN = dict(seq=2048, batch=4, steps=8, save_every=3, fail_at=5, lr=1e-3)
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_LR = 2e-2, 5e-2, 2.5  # card vs plain, one step
+# card vs plain, one step: each leaf's gradient, ‖Δg‖ / ‖g‖ (step_vs_plain). bf16 rounding, and
+# in train_moe the tokens routed otherwise, move every leaf by a few % (PERF.md §6); an
+# attention or norm output that is wrong moves the leaves behind it by its own error
+TRAIN_GRAD_RTOL = 0.1
 
 
 def rel_to_max(got, want) -> float:
@@ -2219,19 +2256,83 @@ def flash_grad_phase(card: str) -> dict:
                 grad_max_rel_err=max(max(c["max_rel_err"].values()) for c in cases))
 
 
-def train_flops(cfg, batch: int, seq: int) -> tuple:
-    """(model FLOPs of one training step, the same with the remat
-    recompute): 2·tokens·(layer matrices + the tied head) plus the causal
-    attention products (4·B·H·Dh·S(S+1)/2 a layer) make one forward; a step
-    is three forwards' worth (forward, then the backward's two products per
-    product), and the recompute of ``remat="full"`` (every layer and, the CE
-    chunks being checkpointed, the head) adds a fourth."""
-    d, hd, kvd, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
-    layer = d * hd + 2 * d * kvd + hd * d + 3 * d * ff
-    tokens = batch * seq
-    fwd = 2.0 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
-    fwd += cfg.n_layers * 4.0 * batch * cfg.n_heads * cfg.head_dim * seq * (seq + 1) / 2
-    return 3 * fwd, 4 * fwd
+def flops_summary(cfg, batch: int, seq: int, step_s: float) -> dict:
+    """Model FLOPs of one training step by the port's analytic model,
+    ``roofline.analytic.model_flops`` (6 · active parameters · tokens plus
+    the causal attention products), × 4/3 for ``remat="full"``, which
+    re-runs the forward (every layer and, the CE chunks being checkpointed,
+    the head) inside the backward; the share an untied embedding table
+    adds (6 · V · D · tokens: a row gather that does no matrix arithmetic;
+    0 where the table is the head's); and the share of the bf16 peak at
+    ``step_s`` a step of each, with and without that lookup."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.roofline.analytic import model_flops
+
+    flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"))
+    lookup = 0 if cfg.tie_embeddings else 6 * cfg.vocab_size * cfg.d_model * batch * seq
+    peak = step_s * PEAK_BF16_FLOPS
+    return dict(
+        model_flops_per_step=flops, model_flops_with_recompute=flops * 4 / 3,
+        embed_lookup_flops=lookup, embed_lookup_share=lookup / flops,
+        mfu=flops / peak, mfu_with_recompute=flops * 4 / 3 / peak,
+        mfu_without_embed_lookup=(flops - lookup) / peak,
+        mfu_with_recompute_without_embed_lookup=(flops - lookup) * 4 / 3 / peak)
+
+
+def host_snapshot(state) -> dict:
+    """A train state's parameters and first moments, copied to the host by
+    name: what :func:`step_vs_plain` holds, kept off the card while the
+    plain step runs."""
+    import torch
+
+    with torch.no_grad():
+        return {"params": {n: p.detach().to("cpu") for n, p in state["params"].named_parameters()},
+                "m": {n: t.to("cpu") for n, t in state["opt"]["m"].items()}}
+
+
+def step_vs_plain(kernel: dict, km: dict, plain: dict, pm: dict) -> tuple:
+    """(summary, ok): one train step on the kernel path (``kernel``, a
+    :func:`host_snapshot`, and its metrics ``km``) against the same step
+    from the same state and batch on the plain path (its state ``plain``
+    and metrics ``pm``). The loss and the global gradient norm are held at
+    TRAIN_LOSS_RTOL and TRAIN_GNORM_RTOL; the gradients leaf by leaf. After
+    one AdamW step from zero moments each leaf's first moment is (1 - b1) ·
+    clip scale · its gradient, so ‖m_kernel - m_plain‖ / ‖m_plain‖ is that
+    leaf's gradient error (the two clip scales differ as the global norms
+    do): within TRAIN_GRAD_RTOL for every leaf, reported per leaf kind (the
+    worst layer) beside the max-relative error. The parameters are
+    reported and held at TRAIN_PARAM_LR · lr, a bound Adam's first step
+    keeps by itself (each update is about lr · sign(g), so a flipped sign
+    moves one element by 2 lr): it cannot tell a wrong gradient, the
+    moments can."""
+    import torch
+
+    lr = float(km["lr"])
+    loss_k, loss_p = float(km["loss"]), float(pm["loss"])
+    gn_k, gn_p = float(km["grad_norm"]), float(pm["grad_norm"])
+    param_err, kinds, worst = 0.0, {}, ("", 0.0)
+    with torch.no_grad():
+        for n, p in plain["params"].named_parameters():
+            param_err = max(param_err, (kernel["params"][n].to(p.device) - p).abs().max().item())
+            want = plain["opt"]["m"][n].double()
+            d = kernel["m"][n].to(want.device).double() - want
+            by_norm = (d.norm() / want.norm().clamp_min(1e-30)).item()
+            by_max = (d.abs().max() / want.abs().max().clamp_min(1e-30)).item()
+            kind = ".".join(n.split(".")[2:]) if n.startswith("layers.") else n  # the layer index dropped
+            k = kinds.setdefault(kind, {"grad_rel_norm": 0.0, "grad_rel_max": 0.0})
+            k["grad_rel_norm"], k["grad_rel_max"] = max(k["grad_rel_norm"], by_norm), max(k["grad_rel_max"], by_max)
+            if by_norm > worst[1]:
+                worst = (n, by_norm)
+    summary = dict(
+        loss_kernel=loss_k, loss_plain=loss_p, loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+        grad_norm_kernel=gn_k, grad_norm_plain=gn_p, grad_norm_rel=abs(gn_k - gn_p) / gn_p,
+        grad_rel_norm_worst={"leaf": worst[0], "value": worst[1]}, grads_by_kind=kinds,
+        lr=lr, max_param_diff=param_err, max_param_diff_over_lr=param_err / lr,
+        bar={"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GNORM_RTOL,
+             "grad_rel_norm_per_leaf": TRAIN_GRAD_RTOL, "param_atol_lr": TRAIN_PARAM_LR})
+    ok = (summary["loss_rel"] <= TRAIN_LOSS_RTOL and summary["grad_norm_rel"] <= TRAIN_GNORM_RTOL
+          and worst[1] <= TRAIN_GRAD_RTOL and param_err <= TRAIN_PARAM_LR * lr)
+    return summary, ok
 
 
 def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
@@ -2281,23 +2382,12 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     launches = {"flash": FK.flash_attention_cuda.launches, "flash_by_route": dict(FK.launches_by_route),
                 "rmsnorm": rmsnorm_cuda.launches}
     want = {"flash": cfg.n_layers * 2, "rmsnorm": cfg.n_layers * 4 * 2 + 1} if on_card else None
-    kernel_params = {n: p.detach() for n, p in state["params"].named_parameters()}
+    kernel = host_snapshot(state)
     del state
     plain, pm = make_train_step(cfg, plain_flags, opt)(fresh(), batch)
     sync()
-    lr = float(km["lr"])
-    param_err = max((kernel_params[n] - p.detach()).abs().max().item()
-                    for n, p in plain["params"].named_parameters())
-    vs_plain = dict(
-        loss_kernel=float(km["loss"]), loss_plain=float(pm["loss"]),
-        loss_rel=abs(float(km["loss"]) - float(pm["loss"])) / abs(float(pm["loss"])),
-        grad_norm_kernel=float(km["grad_norm"]), grad_norm_plain=float(pm["grad_norm"]),
-        grad_norm_rel=abs(float(km["grad_norm"]) - float(pm["grad_norm"])) / float(pm["grad_norm"]),
-        lr=lr, max_param_diff=param_err, max_param_diff_over_lr=param_err / lr,
-        bar={"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_GNORM_RTOL, "param_atol_lr": TRAIN_PARAM_LR})
-    del plain, kernel_params
-    vs_ok = (vs_plain["loss_rel"] <= TRAIN_LOSS_RTOL and vs_plain["grad_norm_rel"] <= TRAIN_GNORM_RTOL
-             and param_err <= TRAIN_PARAM_LR * lr)
+    vs_plain, vs_ok = step_vs_plain(kernel, km, plain, pm)
+    del plain, kernel
 
     # ---- 8 steps under the Supervisor with an async checkpoint manager, then
     # the same run with a fault injected once at step 5 -----------------------
@@ -2354,7 +2444,6 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     bitwise = [faulty["trace"].get(i) == clean["trace"][i] for i in steps]
     walls = sorted(clean["walls"][1:])
     step_s = walls[len(walls) // 2]
-    model_flops, remat_flops = train_flops(cfg, run["batch"], run["seq"])
 
     profile = None
     if on_card:  # where a step's time goes: one more step under the profiler
@@ -2370,9 +2459,7 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
         step_wall_s=step_s, step_walls_s=clean["walls"], first_step_s=first_step_s,
         tokens_per_s=run["batch"] * run["seq"] / step_s, supervised_wall_s=clean["wall_s"],
         max_memory_allocated=clean["peak"], losses=losses,
-        grad_norms=[clean["trace"][i][1] for i in steps],
-        model_flops_per_step=model_flops, model_flops_with_recompute=remat_flops,
-        mfu=model_flops / step_s / PEAK_BF16_FLOPS, mfu_with_recompute=remat_flops / step_s / PEAK_BF16_FLOPS,
+        grad_norms=[clean["trace"][i][1] for i in steps], **flops_summary(cfg, run["batch"], run["seq"], step_s),
         recovery=dict(injected=faulty["injected"], recoveries=faulty["recoveries"],
                       bitwise_equal_steps=sum(bitwise), steps=len(steps), deterministic_algorithms=True,
                       wall_s=faulty["wall_s"]),
@@ -2392,6 +2479,226 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     if why:
         fail("train", "; ".join(why), **summary)
     emit("train", ok=True, **summary)
+    return launches
+
+
+# Qwen3-MoE cut from 94 layers to 1; the kernel-vs-plain step at 64 experts: at
+# 128 the plain path's blockwise attention backward needs more than the card
+# has left beside the 128-expert f32 state (measured, PERF.md)
+TRAIN_MOE = dict(seq=2048, batch=2, steps=6, lr=1e-3, layers=1, compare_experts=64)
+
+
+def moe_sync_check(cfg, batch: int, seq: int, device) -> str | None:
+    """One full-width MoE layer, forward and backward, at the train step's
+    shape with any host synchronisation raising (after a warm-up call):
+    None, or the error. Its own seeded weights (bf16 experts, f32 router)
+    and input, freed on return."""
+    import torch
+
+    from repro_torch.models.moe import moe_apply, moe_init
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def normal(shape, scale, dt):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dt)
+
+    params = {k: v.requires_grad_() for k, v in moe_init(normal, cfg, torch.bfloat16, device).items()}
+    x = torch.randn(batch, seq, cfg.d_model, generator=g, device=device).to(torch.bfloat16).requires_grad_()
+    leaves = [x] + list(params.values())
+
+    def fwd_bwd():
+        y, aux = moe_apply(params, x, cfg)
+        return torch.autograd.grad(y.float().square().mean() + aux, leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    try:
+        with sync_errors()():
+            grads = fwd_bwd()
+        torch.cuda.synchronize()
+        return None if all(gr is not None for gr in grads) else "a leaf got no gradient"
+    except RuntimeError as e:
+        return str(e)[:300]
+
+
+def determinism_probe(cfg, batch: int, seq: int, device) -> dict:
+    """Under ``torch.use_deterministic_algorithms(True)``: each of the MoE
+    layer's three order-sensitive CUDA ops at the train step's shape — the
+    dispatch ``index_add``, the position ``cumsum`` of the (T·k, E) one-hot
+    and the combine's gather backward (a scatter-add into the (E·C, D)
+    buffer) — as "ok" or the error it raises, verbatim."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+
+    t, k, e, d = batch * seq, cfg.top_k, cfg.n_experts, cfg.d_model
+    c = capacity(t, cfg)
+    g = torch.Generator(device=device).manual_seed(3)
+    flat_e = torch.randint(0, e, (t * k,), generator=g, device=device)
+    slot = flat_e * c + torch.randint(0, c, (t * k,), generator=g, device=device)
+    rows = torch.randn(t * k, d, generator=g, device=device).to(torch.bfloat16)
+    onehot = (flat_e[:, None] == torch.arange(e, device=device)).to(torch.int32)
+    h = torch.randn(e * c, d, generator=g, device=device).to(torch.bfloat16).requires_grad_()
+    ops = {
+        "index_add": lambda: torch.zeros(e * c, d, dtype=torch.bfloat16, device=device).index_add(0, slot, rows),
+        "cumsum": lambda: torch.cumsum(onehot, 0),
+        "gather_backward": lambda: torch.autograd.grad(h[slot].float().sum(), h),
+    }
+    out = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, fn in ops.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                out[name] = "ok"
+            except RuntimeError as err:
+                out[name] = str(err).splitlines()[0][:300]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return out
+
+
+def train_moe_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
+    """Phase ``train_moe``: Qwen3-MoE (one layer of 94 at full width: all 128
+    experts, top-8, 64:4 GQA, qk-norm; untied 151,936-token embedding and
+    head) trained on the card through the flash and RMSNorm kernels under
+    autograd, ``microbatches=1``; the kernel path against the plain path at
+    ``compare_experts``. ``cfg``, ``device`` and ``overrides`` of
+    :data:`TRAIN_MOE` exist to rehearse the phase on the CPU at a reduced
+    size (no launches are counted and no sync is checked there). Returns
+    the launch counts of one step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.models.model import RunFlags
+    from repro_torch.models.moe import capacity, record_routing
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    run = dict(TRAIN_MOE, **overrides)
+    cfg = cfg or dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=run["layers"])
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    free()
+    allocated_before = torch.cuda.memory_allocated() if on_card else None
+    opt = AdamWConfig(peak_lr=run["lr"], warmup_steps=2, total_steps=run["steps"])
+    kernel_flags = RunFlags(attn_impl="kernel", norm_impl="kernel", remat="full")
+    plain_flags = RunFlags(attn_impl="blockwise", norm_impl="reference", remat="full")
+    data = lambda c: for_model(c, seq_len=run["seq"], global_batch=run["batch"], seed=0)  # noqa: E731
+    n_attn = sum(cfg.block_kinds[i % cfg.cycle_len] == "attn" for i in range(cfg.n_layers))
+    n_moe = sum(cfg.mlp_kind_at(i % cfg.cycle_len) == "moe" for i in range(cfg.n_layers))
+    want = {"flash": 2 * n_attn, "rmsnorm": cfg.n_layers * 4 * 2 + 1} if on_card else None
+
+    # ---- moe_apply's forward and backward free of host syncs --------------
+    sync_error = moe_sync_check(cfg, run["batch"], run["seq"], device) if on_card else None
+    if sync_error is not None:
+        fail("train_moe", "a host synchronisation in moe_apply's forward or backward", error=sync_error)
+
+    # ---- steps in a plain loop (no Supervisor, no checkpoint); the first
+    # with its launches counted (zeroed just before, read just after) -------
+    state = init_train_state(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    stream = data(cfg)
+    step_fn = make_train_step(cfg, kernel_flags, opt)
+    losses, walls, launches = [], [], None
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(run["steps"]):
+        b = stream.next_batch()
+        sync()
+        if i == 0:
+            FK.reset_launches()
+            rmsnorm_cuda.launches = 0
+        t = time.perf_counter()
+        state, m = step_fn(state, b)
+        sync()
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            launches = {"flash": FK.flash_attention_cuda.launches,
+                        "flash_by_route": dict(FK.launches_by_route), "rmsnorm": rmsnorm_cuda.launches}
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    step_s = sorted(walls[1:])[len(walls[1:]) // 2]
+
+    profile = determinism = deterministic_step = None
+    if on_card:  # where a step's time goes; then the determinism probe
+        b = stream.next_batch()
+        profile = device_profile(lambda: step_fn(state, b)[1]["loss"].item())
+        determinism = determinism_probe(cfg, run["batch"], run["seq"], device)
+        torch.use_deterministic_algorithms(True)
+        try:
+            step_fn(state, stream.next_batch())[1]["loss"].item()
+            deterministic_step = "ok"
+        except RuntimeError as err:
+            deterministic_step = str(err).splitlines()[0][:300]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    del state, m, step_fn
+    free()
+
+    # ---- end to end: one step on the kernel path and the same step from the
+    # same state and batch on the plain path, at compare_experts (so its
+    # routing flips are those of that model, not of the timed one; the
+    # kernels themselves are held at this phase's shapes in flash_grad and
+    # rmsnorm_parity); the kernel step's parameters and moments moved to the
+    # host before the plain step's state is made --------------------------
+    ccfg = dataclasses.replace(cfg, n_experts=run["compare_experts"])
+    batch = data(ccfg).next_batch()
+    with record_routing() as kernel_routes:
+        state, km = make_train_step(ccfg, kernel_flags, opt)(init_train_state(ccfg, seed=0, device=device), batch)
+    kernel = host_snapshot(state)
+    km = {k: float(v) for k, v in km.items()}
+    del state
+    free()
+    with record_routing() as plain_routes:
+        plain, pm = make_train_step(ccfg, plain_flags, opt)(init_train_state(ccfg, seed=0, device=device), batch)
+    sync()
+    vs_plain, vs_ok = step_vs_plain(kernel, km, plain, pm)
+    # each MoE call's forward: remat records the recomputes after them
+    flips, _ = routing_flips(kernel_routes[:n_moe], plain_routes[:n_moe], ccfg.n_experts)
+    vs_plain = dict(
+        scope=f"end to end, at {ccfg.n_experts} experts: routing_flips and every number here are that "
+              f"model's, not the timed {cfg.n_experts}-expert one's",
+        experts=ccfg.n_experts, capacity=capacity(run["batch"] * run["seq"], ccfg),
+        aux_kernel=km["aux_loss"], aux_plain=float(pm["aux_loss"]), routing_flips=flips, **vs_plain)
+    del plain, kernel, kernel_routes, plain_routes
+    free()
+
+    summary = dict(
+        model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, experts=cfg.n_experts, top_k=cfg.top_k,
+        capacity=capacity(run["batch"] * run["seq"], cfg), params=n_params, batch=run["batch"],
+        seq=run["seq"], steps=run["steps"], microbatches=1, remat="full", flags="attn kernel, norm kernel",
+        allocated_before=allocated_before, sync_free_moe_apply=sync_error is None if on_card else None,
+        launches_one_step=launches, want_launches=want, vs_plain=vs_plain,
+        step_wall_s=step_s, step_walls_s=walls, tokens_per_s=run["batch"] * run["seq"] / step_s,
+        max_memory_allocated=peak, losses=losses, **flops_summary(cfg, run["batch"], run["seq"], step_s),
+        profile=profile, deterministic_ops=determinism, deterministic_step=deterministic_step,
+        card=card, seconds=time.perf_counter() - t_phase)
+    why = []
+    if want and (launches["flash"] != want["flash"] or launches["rmsnorm"] != want["rmsnorm"]
+                 or launches["flash_by_route"]["tensor_cores"] != want["flash"]):
+        why.append(f"launches {launches}, want {want} (flash all on the tensor-core route)")
+    if not vs_ok:
+        why.append("the kernel path's step is off the plain path's")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != run["steps"] or losses[-1] >= losses[0]:
+        why.append("losses not finite, or the last not below the first")
+    if why:
+        fail("train_moe", "; ".join(why), **summary)
+    emit("train_moe", ok=True, **summary)
     return launches
 
 
@@ -2713,14 +3020,17 @@ def main() -> int:
     jamba, qwen_moe = moe["jamba-v0.1-52b"], moe["qwen3-moe-235b-a22b"]
     flash.update(flash_grad_phase(card))
     train_launches = train_phase(card)
+    moe_train_launches = train_moe_phase(card)
     flash["launches_by_path"] = {"serve": flash["launches"], "serve_moe": jamba["flash"],
                                  "serve_moe_qwen3": qwen_moe["flash"],
-                                 "train_step": train_launches["flash"]}
+                                 "train_step": train_launches["flash"],
+                                 "train_moe_step": moe_train_launches["flash"]}
     ssd_entry["launches_by_path"] = {"serve_mamba": ssd_entry["launches"], "serve_moe": jamba["ssd"]}
     rms_entry["launches_by_path"] = {"serve_mamba": rms_entry["launches"],
                                      "serve_moe": jamba["rmsnorm"],
                                      "serve_moe_qwen3": qwen_moe["rmsnorm"],
-                                     "train_step": train_launches["rmsnorm"]}
+                                     "train_step": train_launches["rmsnorm"],
+                                     "train_moe_step": moe_train_launches["rmsnorm"]}
 
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape

@@ -16,7 +16,7 @@ from .backend import (
 from .blocks import Block, BlockKind, make_accelerator, make_gpp, make_mem, make_noc
 from .budgets import Budget, Distance, distance
 from .codesign import CodesignLedger, FocusRecord
-from .database import HardwareDatabase
+from .database import HardwareDatabase, TPUDatabase
 from .design import Design
 from .design_space import random_single_noc_designs
 from .device_explore import (
@@ -96,6 +96,7 @@ __all__ = [
     "SimResult",
     "SimTelemetry",
     "SimulatorBackend",
+    "TPUDatabase",
     "Task",
     "TaskGraph",
     "TaskRates",

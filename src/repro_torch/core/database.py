@@ -6,6 +6,9 @@ those are available offline, so we ship a parametric library with the same
 A_peak), per-block power/area entries over the Table-3 knob ladders, and the
 Table-1 Gables workload profiles. Energy/area constants are order-of-magnitude
 figures for a ~5 nm class process (documented in DESIGN.md as stand-ins).
+
+The same interface, instantiated with TPU v5e constants (``TPUDatabase``),
+prices the distributed-training design space (``core/tpu_design.py``).
 """
 from __future__ import annotations
 
@@ -116,3 +119,42 @@ class HardwareDatabase:
                 return self.area.sram_mm2_per_mb * self.sram_capacity_mb * f_scale
             return self.area.dram_phy_mm2
         return self.area.noc_mm2_per_byte_width * block.width_bytes * block.n_links * f_scale
+
+
+# ---------------------------------------------------------------------------
+# TPU v5e-class constants (the roofline model's hardware terms), expressed
+# through the same database interface so the simulator prices pod-level
+# designs unchanged (core/tpu_design.py). They describe the modelled TPU chip,
+# not the port's card.
+# ---------------------------------------------------------------------------
+TPU_PEAK_FLOPS_BF16 = 197e12  # per chip
+TPU_HBM_BYTES_PER_S = 819e9  # per chip
+TPU_ICI_BYTES_PER_S_PER_LINK = 50e9
+
+
+class TPUDatabase(HardwareDatabase):
+    """Prices pod-level designs: PE=chip MXU, MEM=HBM, NOC=ICI."""
+
+    def __init__(self) -> None:
+        super().__init__(
+            energy=EnergyModel(
+                gpp_pj_per_op=0.6,  # bf16 MXU FLOP (~0.3-1 pJ public estimates)
+                acc_pj_per_op=0.6,
+                dram_pj_per_byte=12.0,  # HBM access
+                sram_pj_per_byte=1.2,  # VMEM
+                noc_pj_per_byte_hop=4.0,  # ICI serdes
+                gpp_leak_w=30.0,  # chip idle
+                acc_leak_w=30.0,
+                mem_leak_w_per_mb=0.0,
+                noc_leak_w=1.0,
+            )
+        )
+
+    def pe_peak_ops(self, block: Block) -> float:
+        return TPU_PEAK_FLOPS_BF16
+
+    def mem_peak_bw(self) -> float:
+        return TPU_HBM_BYTES_PER_S
+
+    def ici_peak_bw(self, n_links: int = 1) -> float:
+        return TPU_ICI_BYTES_PER_S_PER_LINK * n_links

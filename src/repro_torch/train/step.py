@@ -134,6 +134,9 @@ def make_train_step(
         for mb in _microbatches(batch, microbatches):
             loss, ce_i, aux_i = loss_fn(params, mb)
             g = torch.autograd.grad(loss, list(named.values()))
+            # from the second microbatch on, g is a second f32 gradient tree
+            # beside the accumulator: the MoE step on the card (Qwen3-MoE,
+            # one layer at full width) runs with microbatches=1 to fit
             if grads is None:
                 grads = [x.to(_F32) for x in g]
             else:

@@ -1,7 +1,8 @@
 """The training path on the card: the flash kernel's row log-sum-exp, the
 flash and RMSNorm ``torch.autograd.Function``s against their plain
-counterparts, the SSD kernel refusing autograd, and a reduced train step on
-the kernel path against the plain path. Every test here needs a CUDA
+counterparts, the SSD kernel refusing autograd, a reduced train step on the
+kernel path against the plain path (dense and MoE), and ``moe_apply``'s
+forward and backward free of host syncs. Every test here needs a CUDA
 device: each carries the ``gpu`` marker and skips where there is none.
 
 Bars: out at the reference's forward bars (2e-2 bf16, 2e-5 f32, elementwise
@@ -16,10 +17,15 @@ machine that has PyTorch with CUDA and nothing else of the test suite:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu_train.py
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
+
+from chip_smoke import TRAIN_GRAD_RTOL, host_snapshot, moe_sync_check, step_vs_plain  # noqa: E402
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # the reference's forward bars (test_kernels.py)
 LSE_TOL = 1e-5
@@ -161,8 +167,10 @@ def test_ssd_kernel_refuses_autograd(cuda):
 def test_reduced_train_step_kernel_path_matches_plain_path(cuda, microbatches):
     """One step from one state and batch: the kernel path (flash and RMSNorm
     kernels under autograd, remat) against the plain path; loss within 2e-2
-    relative, grad norm within 5e-2, every parameter within 2.5 lr, and the
-    launches the step's structure fixes."""
+    relative, grad norm within 5e-2, every parameter within 2.5 lr, each
+    leaf's gradient within ``chip_smoke.TRAIN_GRAD_RTOL`` (‖Δg‖/‖g‖, read
+    from the first moments: ``chip_smoke.step_vs_plain``), and the launches
+    the step's structure fixes."""
     from repro_torch.configs.registry import reduced_config
     from repro_torch.data.pipeline import for_model
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -188,3 +196,62 @@ def test_reduced_train_step_kernel_path_matches_plain_path(cuda, microbatches):
     assert abs(km["grad_norm"].item() - pm["grad_norm"].item()) <= 5e-2 * pm["grad_norm"].item()
     for (n, a), (_, c) in zip(ks["params"].named_parameters(), ps["params"].named_parameters()):
         assert (a - c).abs().max().item() <= 2.5 * km["lr"].item(), n
+    vs, _ = step_vs_plain(host_snapshot(ks), km, ps, pm)
+    assert vs["grad_rel_norm_worst"]["value"] <= TRAIN_GRAD_RTOL, vs["grads_by_kind"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_reduced_moe_train_step_kernel_path_matches_plain_path(cuda, microbatches):
+    """Reduced Qwen3-MoE (two layers, 4 experts top-2): one step on the
+    kernel path against the plain path within the dense bars (the aux loss
+    at the loss bar; each leaf's gradient, router and experts included),
+    with the launches the step's structure fixes per
+    microbatch (flash 2 a layer; RMSNorm 4 × 2 a layer + 1) and at most 5 %
+    of the tokens routed otherwise by the two paths, per MoE call."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.models.model import RunFlags
+    from repro_torch.models.moe import record_routing
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(reduced_config("qwen3-moe-235b-a22b"), n_layers=2)
+    batch = for_model(cfg, seq_len=128, global_batch=4, seed=0).next_batch()
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    kernel = RunFlags(attn_impl="kernel", norm_impl="kernel", remat="full")
+    plain = RunFlags(attn_impl="blockwise", norm_impl="reference", remat="full", q_block=64, kv_block=64)
+    FK.reset_launches()
+    rmsnorm_cuda.launches = 0
+    with record_routing() as kr:
+        ks, km = make_train_step(cfg, kernel, opt, microbatches)(init_train_state(cfg, seed=0), batch)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_cuda.launches == cfg.n_layers * 2 * microbatches
+    assert rmsnorm_cuda.launches == (cfg.n_layers * 4 * 2 + 1) * microbatches
+    with record_routing() as pr:
+        ps, pm = make_train_step(cfg, plain, opt, microbatches)(init_train_state(cfg, seed=0), batch)
+    assert len(kr) == len(pr) == 2 * cfg.n_layers * microbatches  # forward and remat recompute
+    flips = [(a["expert_idx"].sort(-1).values != b["expert_idx"].sort(-1).values).any(-1).float().mean().item()
+             for a, b in zip(kr, pr)]
+    assert max(flips) <= 0.05, flips
+    assert abs(km["aux_loss"].item() - pm["aux_loss"].item()) <= 2e-2 * pm["aux_loss"].item()
+    assert abs(km["loss"].item() - pm["loss"].item()) <= 2e-2 * abs(pm["loss"].item())
+    assert abs(km["grad_norm"].item() - pm["grad_norm"].item()) <= 5e-2 * pm["grad_norm"].item()
+    for (n, a), (_, c) in zip(ks["params"].named_parameters(), ps["params"].named_parameters()):
+        assert (a - c).abs().max().item() <= 2.5 * km["lr"].item(), n
+    vs, _ = step_vs_plain(host_snapshot(ks), km, ps, pm)
+    assert vs["grad_rel_norm_worst"]["value"] <= TRAIN_GRAD_RTOL, vs["grads_by_kind"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "grok-1-314b", "jamba-v0.1-52b"])
+def test_moe_apply_forward_and_backward_are_sync_free(cuda, name):
+    """``moe_apply`` forward and backward at a reduced config raise no host
+    synchronisation under sync-debug "error", and every leaf gets a
+    gradient (``chip_smoke.moe_sync_check``, which ``train_moe`` runs at
+    full width)."""
+    from repro_torch.configs.registry import reduced_config
+
+    assert moe_sync_check(reduced_config(name), 2, 64, cuda) is None

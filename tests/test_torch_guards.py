@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
                    "configs/registry.py", "kernels/_build.py", "models/flash_ref.py",
                    "optim/adamw.py", "optim/compress.py", "train/step.py", "data/pipeline.py",
-                   "checkpoint/manager.py", "launch/train.py"):
+                   "checkpoint/manager.py", "launch/train.py", "sharding/rules.py",
+                   "sharding/specs.py", "roofline/analytic.py", "core/tpu_design.py",
+                   "launch/autotune.py"):
         assert os.path.join(PORT, module) in files, module
     bad = [
         (os.path.relpath(p, ROOT), line, mod)

@@ -243,6 +243,77 @@ def test_global_norm_matches_reference():
     assert abs(got - want) <= GNORM_TOL * want
 
 
+@torch.no_grad()
+def whole_tree_update(grads, state, params, cfg):
+    """The update as one ``_foreach`` sequence over the whole tree (the
+    optimizer's form before it grouped leaves): the oracle of the grouped
+    update."""
+    count = state["count"] + 1
+    lr = PA.schedule(count, cfg)
+    gnorm = PA.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    names = list(params)
+    g = [grads[k].to(torch.float32) for k in names]
+    torch._foreach_mul_(g, scale)
+    m = [state["m"][k] for k in names]
+    v = [state["v"][k] for k in names]
+    torch._foreach_mul_(m, cfg.b1)
+    torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
+    torch._foreach_mul_(v, cfg.b2)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
+    cnt = count.to(torch.float32)
+    bc1 = 1 - cfg.b1 ** cnt
+    bc2 = 1 - cfg.b2 ** cnt
+    p = [params[k] for k in names]
+    denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+    torch._foreach_add_(denom, cfg.eps)
+    step = torch._foreach_div(torch._foreach_div(m, bc1), denom)
+    pf = [x.to(torch.float32) for x in p]
+    torch._foreach_add_(step, torch._foreach_mul(pf, cfg.weight_decay))
+    torch._foreach_mul_(step, lr)
+    new = torch._foreach_sub(pf, step)
+    for x, y in zip(p, new):
+        x.copy_(y)
+    state["count"] = count
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+GROUP_SHAPES = {"a": (3, 4), "big": (40, 50), "b": (17,), "c": (5, 6, 7), "d": (1,), "h": (8, 3)}
+
+
+@pytest.mark.parametrize("group_bytes", [1, 200, 1000, PA.GROUP_BYTES])
+@pytest.mark.parametrize("clip_norm", [1.0, 1e4])  # clipping active, inactive
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_update_equals_whole_tree_update_bitwise(monkeypatch, group_bytes, clip_norm, dtype):
+    """The grouped update against the whole-tree one, five steps from the
+    same random tree: params, m, v, lr and grad norm bit for bit. At 1 byte
+    every leaf is a group alone; at 200 and 1000 bytes groups hold several
+    leaves, and "big" (8,000 bytes) is larger than a group."""
+    rng = np.random.default_rng(7)
+    base = {k: rng.standard_normal(s).astype(np.float32) for k, s in GROUP_SHAPES.items()}
+    cfg = PA.AdamWConfig(peak_lr=1e-2, warmup_steps=2, total_steps=8, clip_norm=clip_norm)
+    trees = [{k: torch.from_numpy(v.copy()).to(dtype) for k, v in base.items()} for _ in range(2)]
+    states = [PA.init(t) for t in trees]
+    monkeypatch.setattr(PA, "GROUP_BYTES", group_bytes)
+    cut = PA.groups(trees[0], group_bytes)
+    assert [k for grp in cut for k in grp] == list(GROUP_SHAPES)
+    assert ["big"] in cut or group_bytes == PA.GROUP_BYTES
+    assert (len(cut) == len(GROUP_SHAPES)) == (group_bytes == 1)
+    clipped = []
+    for _ in range(5):
+        g = {k: (rng.standard_normal(s) * 3).astype(np.float32) for k, s in GROUP_SHAPES.items()}
+        _, _, got = PA.update({k: torch.from_numpy(v.copy()) for k, v in g.items()}, states[0], trees[0], cfg)
+        _, _, want = whole_tree_update({k: torch.from_numpy(v.copy()) for k, v in g.items()}, states[1],
+                                       trees[1], cfg)
+        clipped.append(float(want["grad_norm"]) > clip_norm)
+        assert torch.equal(got["lr"], want["lr"]) and torch.equal(got["grad_norm"], want["grad_norm"])
+        for k in GROUP_SHAPES:
+            assert trees[0][k].dtype == dtype and torch.equal(trees[0][k], trees[1][k]), k
+            assert torch.equal(states[0]["m"][k], states[1]["m"][k]), k
+            assert torch.equal(states[0]["v"][k], states[1]["v"][k]), k
+    assert all(clipped) if clip_norm == 1.0 else not any(clipped)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_compress_matches_reference(seed):
     rng = np.random.default_rng(seed)

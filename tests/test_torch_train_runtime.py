@@ -197,3 +197,32 @@ def test_chip_smoke_train_phase_rehearses_on_the_cpu(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["phase"] == "train" and line["ok"] and line["recovery"]["recoveries"] == 1
     assert line["recovery"]["bitwise_equal_steps"] == line["steps"] == 8
+
+
+def test_chip_smoke_train_moe_phase_rehearses_on_the_cpu(capsys):
+    """``chip_smoke.train_moe_phase`` at a reduced size on the CPU (reduced
+    Qwen3-MoE, one layer, 8 experts, compared at 4; the kernels' plain
+    versions, no launches to count, no sync check): the step loop, the
+    kernel-vs-plain step with its routing flips and the FLOP accounting
+    hold, and the losses fall."""
+    import dataclasses
+    import json
+
+    import chip_smoke
+
+    cfg = dataclasses.replace(reduced_config("qwen3-moe-235b-a22b"), n_layers=1, n_experts=8)
+    launches = chip_smoke.train_moe_phase("cpu", cfg, device="cpu", seq=32, batch=4, compare_experts=4, lr=5e-3)
+    assert launches["flash"] == launches["rmsnorm"] == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "train_moe" and line["ok"] and len(line["losses"]) == line["steps"] == 6
+    assert (line["experts"], line["capacity"]) == (8, 40)
+    assert (line["vs_plain"]["experts"], line["vs_plain"]["capacity"]) == (4, 80)
+    assert line["vs_plain"]["routing_flips"][0]["set"] <= 0.05
+    assert line["model_flops_with_recompute"] == line["model_flops_per_step"] * 4 / 3 > 0
+    # the untied embedding's lookup, 6 · V · D · tokens of the count, reported apart
+    assert line["embed_lookup_flops"] == 6 * cfg.vocab_size * cfg.d_model * 4 * 32
+    assert line["mfu_without_embed_lookup"] < line["mfu"]
+    # the gradients held leaf by leaf (through the first moments), experts and router included
+    grads = line["vs_plain"]["grads_by_kind"]
+    assert {"mixer.wq", "mlp.router", "mlp.wi_gate", "mlp.wo", "embed", "lm_head"} <= set(grads)
+    assert line["vs_plain"]["grad_rel_norm_worst"]["value"] <= chip_smoke.TRAIN_GRAD_RTOL
