@@ -12,8 +12,10 @@ CUDA flash-attention kernel; serving Mamba2-370m at full width and depth
 through the CUDA SSD and RMSNorm kernels; serving the MoE stacks at full
 width (Jamba, one whole 8-layer cycle, through all three LLM kernels, and
 four layers of Qwen3-MoE); training Qwen3-1.7B at full width and depth
-with the flash and RMSNorm kernels in the forward pass under autograd; and
-training one full-width layer of Qwen3-MoE the same way.
+with the flash and RMSNorm kernels in the forward pass under autograd;
+training one full-width layer of Qwen3-MoE the same way; and the sharded
+training path (DTensor state, activation constraints, the shard_map MoE
+over NCCL all-to-alls) on a (1, 1) mesh of the one card.
 Phases, each printing one JSON line:
 
   1. env       card name and power limit, torch / CUDA versions
@@ -231,12 +233,37 @@ Phases, each printing one JSON line:
                experts (the kernel step's parameters and moments moved to
                the host first; the train phase's bars; routing flips per
                MoE layer, those of the 64-expert model)
+ 18c. train_mesh  a world-1 NCCL process group on an in-process store and
+               a (1, 1) ("data", "model") mesh (destroyed at the end):
+               Qwen3-1.7B at train's shape (28 layers, B=4 × S=2048, remat
+               full, flash and RMSNorm kernels), its state DTensors placed
+               by runtime.elastic.state_shardings under default_rules, 3
+               steps under sharding.act.activation_rules, the first with
+               its launches counted (zeroed just before, read just after:
+               56 flash, all tensor cores, and 225 RMSNorm, each kernel on
+               its device's shards via local_map); that step against the
+               unsharded kernel step from the same state and batch at
+               train's bars (step_vs_plain, each leaf at TRAIN_GRAD_RTOL),
+               with the leaves equal bit for bit counted; step wall
+               (median of steps 2-3), tokens/s, peak memory beside train's
+               from the same call, one more step under the profiler (busy
+               share, kernels, top kernels); a checkpoint
+               written from the mesh state and restored with its
+               shardings, every leaf bit for bit and placed as before;
+               then one full-width Qwen3-MoE MoE layer (128 experts top-8,
+               D 4096, F 1536) in f32 at B=2 × S=2048, dropless (capacity
+               factor 8, the reference's own shard_map test), through
+               moe_apply_shard_map against moe_apply on the same weights:
+               forward and backward under sync-debug "error", 2 expert
+               all-to-alls forward and 2 backward, y and aux within 1e-5,
+               every gradient finite and within 1e-5 of its max
  19. kernels   one line per ported kernel (launches, error, times, bound;
                flash and SSD also their launches per route; phase-sim its
                launches per path, the serve phases' among them; flash, SSD
                and RMSNorm their launches in each serving run (serve_moe:
                Jamba's, and Qwen3-MoE's as serve_moe_qwen3) and flash and
-               RMSNorm in one train step of each train phase, flash its
+               RMSNorm in one train step of each train phase (train_mesh's
+               as train_mesh_step), flash its
                forward times with the lse)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
@@ -2281,13 +2308,15 @@ def flops_summary(cfg, batch: int, seq: int, step_s: float) -> dict:
 
 def host_snapshot(state) -> dict:
     """A train state's parameters and first moments, copied to the host by
-    name: what :func:`step_vs_plain` holds, kept off the card while the
-    plain step runs."""
+    name (a DTensor leaf as its full tensor): what :func:`step_vs_plain`
+    holds, kept off the card while the plain step runs."""
     import torch
 
+    from repro_torch.sharding.act import whole
+
     with torch.no_grad():
-        return {"params": {n: p.detach().to("cpu") for n, p in state["params"].named_parameters()},
-                "m": {n: t.to("cpu") for n, t in state["opt"]["m"].items()}}
+        return {"params": {n: whole(p.detach()).to("cpu", copy=True) for n, p in state["params"].named_parameters()},
+                "m": {n: whole(t).to("cpu", copy=True) for n, t in state["opt"]["m"].items()}}
 
 
 def step_vs_plain(kernel: dict, km: dict, plain: dict, pm: dict) -> tuple:
@@ -2340,7 +2369,8 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     card through the flash and RMSNorm kernels under autograd. ``cfg``,
     ``device`` and ``overrides`` of :data:`TRAIN` exist to rehearse the
     phase on the CPU at a reduced size (no kernel launches are counted
-    there). Returns the launch counts of one step."""
+    there). Returns the launch counts of one step, with the step wall,
+    tokens/s and peak memory (``train_mesh`` reports its own beside them)."""
     import shutil
     import tempfile
 
@@ -2479,7 +2509,8 @@ def train_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     if why:
         fail("train", "; ".join(why), **summary)
     emit("train", ok=True, **summary)
-    return launches
+    return dict(launches, step_wall_s=step_s, tokens_per_s=summary["tokens_per_s"],
+                max_memory_allocated=clean["peak"])
 
 
 # Qwen3-MoE cut from 94 layers to 1; the kernel-vs-plain step at 64 experts: at
@@ -2699,6 +2730,286 @@ def train_moe_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     if why:
         fail("train_moe", "; ".join(why), **summary)
     emit("train_moe", ok=True, **summary)
+    return launches
+
+
+# the mesh phase: Qwen3-1.7B at the train phase's shape on a (1, 1) mesh; one
+# full-width Qwen3-MoE MoE layer in f32, dropless as the reference's own
+# shard_map test (capacity factor 8)
+TRAIN_MESH = dict(seq=2048, batch=4, steps=3, lr=1e-3, moe_batch=2, moe_seq=2048, moe_cf=8.0)
+MOE_SM_TOL = 1e-5  # shard_map vs dense MoE at axis sizes of 1: the reference's bar
+
+
+def state_leaves(state):
+    """(name, tensor) of every leaf of a train state."""
+    yield from (("params." + n, p) for n, p in state["params"].named_parameters())
+    for key in ("m", "v"):
+        yield from ((f"opt.{key}.{n}", t) for n, t in state["opt"][key].items())
+    yield "opt.count", state["opt"]["count"]
+    yield "step", state["step"]
+
+
+def collective_counts(fn):
+    """(fn(), {collective op: calls}) with every c10d op ``fn`` dispatches
+    counted (``wait_tensor`` and the autograd wrapper ops left out)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if "c10d" in name and "wait_tensor" not in name and "_wrap_tensor" not in name:
+                self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        out = fn()
+    return out, c.ops
+
+
+def mesh_moe_check(cfg, mesh, batch: int, seq: int, device, on_card: bool) -> dict:
+    """One MoE layer of ``cfg`` in f32 at (batch, seq): ``moe_apply_shard_map``
+    on ``mesh`` against ``moe_apply`` on the same weights and input, forward
+    and backward (loss mean(y²) + aux); on the card the shard_map pass runs
+    under sync-debug "error" after a warm-up, with its collectives counted
+    by direction. Its own seeded weights, freed on return."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.moe_shard_map import moe_apply_shard_map
+    from repro_torch.sharding.act import activation_rules, replicated
+    from repro_torch.sharding.rules import default_rules
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def normal(shape, scale, dt):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dt)
+
+    params = {k: v.requires_grad_() for k, v in moe_init(normal, cfg, torch.float32, device).items()}
+    x = torch.randn(batch, seq, cfg.d_model, generator=g, device=device).requires_grad_()
+    leaves = [x] + list(params.values())
+    rules = default_rules(cfg, ShapeConfig("train", seq, batch, "train"), mesh)
+
+    def dense():
+        y, aux = moe_apply(params, x, cfg)
+        return y.detach(), aux.detach(), torch.autograd.grad(y.square().mean() + aux, leaves)
+
+    def sharded():
+        with activation_rules(rules, mesh):
+            y, aux = moe_apply_shard_map({k: replicated(v, mesh) for k, v in params.items()},
+                                         replicated(x, mesh), cfg, mesh, rules)
+            loss = (y.square().mean() + aux).full_tensor()
+            fwd = (y.full_tensor().detach(), aux.full_tensor().detach())
+        return fwd, loss
+
+    sync()
+    t = time.perf_counter()
+    y_d, aux_d, g_d = dense()
+    sync()
+    dense_s = time.perf_counter() - t
+    sharded()[1].backward()  # warm-up: the NCCL communicators come up here
+    for p in leaves:
+        p.grad = None
+    sync()
+    t = time.perf_counter()
+    try:
+        with sync_errors()() if on_card else contextlib.nullcontext():
+            (fwd, loss), fwd_ops = collective_counts(sharded)
+            _, bwd_ops = collective_counts(lambda: loss.backward())
+        sync()
+    except RuntimeError as e:
+        return {"error": str(e)[:300]}
+    sharded_s = time.perf_counter() - t
+    (y_s, aux_s), g_s = fwd, [p.grad for p in leaves]
+    names = ["x"] + list(params)
+    grads = {n: rel_to_max(a, b) for n, a, b in zip(names, g_s, g_d)}
+    exchanges = {"forward": sum(v for k, v in fwd_ops.items() if "all_to_all" in k),
+                 "backward": sum(v for k, v in bwd_ops.items() if "all_to_all" in k)}
+    out = dict(
+        y_err=((y_s - y_d).abs().max() / y_d.abs().max().clamp_min(1.0)).item(),
+        aux_err=abs(aux_s.item() - aux_d.item()), aux=aux_s.item(), grad_rel_to_max=grads,
+        grads_finite=all(bool(torch.isfinite(gr).all()) for gr in g_s), exchanges=exchanges,
+        collectives_forward=fwd_ops, collectives_backward=bwd_ops, sync_free=on_card,
+        dense_fwd_bwd_s=dense_s, shard_map_fwd_bwd_s=sharded_s, tol=MOE_SM_TOL)
+    del params, x, leaves, g_d, g_s
+    return out
+
+
+def train_mesh_phase(card: str, cfg=None, moe_cfg=None, device="cuda", beside=None, **overrides) -> dict:
+    """Phase ``train_mesh``: the sharded training path on a (1, 1) ("data",
+    "model") mesh of one process (NCCL on the card, gloo on the CPU): (a)
+    Qwen3-1.7B at the train phase's shape, its state placed by
+    ``runtime.elastic.state_shardings`` and its steps run under
+    ``activation_rules`` through the flash and RMSNorm kernels (each on its
+    device's shards, via ``local_map``): launches a step, the first step
+    against the unsharded kernel step from the same state and batch at the
+    train phase's bars (and whether the two are equal bit for bit), step
+    wall, tokens/s and peak memory, and a checkpoint written from the mesh
+    state and restored with its shardings, bit for bit; (b) one full-width
+    Qwen3-MoE MoE layer through ``moe_apply_shard_map`` against
+    ``moe_apply`` (:func:`mesh_moe_check`). ``beside`` is the train phase's
+    return (its step wall, tokens/s and peak from the same call), reported
+    beside this phase's. ``cfg``, ``moe_cfg``, ``device`` and ``overrides``
+    of :data:`TRAIN_MESH` exist to rehearse the phase on the CPU at a reduced
+    size. The process group is destroyed at the end. Returns the launch
+    counts of one mesh step."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models.model import RunFlags
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.elastic import reshard_state, state_shardings
+    from repro_torch.sharding.act import activation_rules, whole
+    from repro_torch.sharding.rules import default_rules
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    run = dict(TRAIN_MESH, **overrides)
+    cfg = cfg or get_config("qwen3-1.7b")
+    moe_cfg = dataclasses.replace(moe_cfg or get_config("qwen3-moe-235b-a22b"), capacity_factor=run["moe_cf"])
+    kind = torch.device(device).type
+    on_card = kind == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    init_process_group(kind)
+    try:
+        mesh = make_host_mesh(1, kind)
+        opt = AdamWConfig(peak_lr=run["lr"], warmup_steps=2, total_steps=run["steps"])
+        flags = RunFlags(attn_impl="kernel", norm_impl="kernel", remat="full")
+        shape = ShapeConfig("train", run["seq"], run["batch"], "train")
+        rules = default_rules(cfg, shape, mesh)
+        data = for_model(cfg, seq_len=run["seq"], global_batch=run["batch"], seed=0)
+        batches = [data.next_batch() for _ in range(run["steps"])]
+
+        # ---- (a) the mesh steps ------------------------------------------------
+        state = init_train_state(cfg, seed=0, device=device)
+        shardings = state_shardings(cfg, shape, mesh, state, rules)
+        state = reshard_state(state, shardings)
+        placed = all(isinstance(t, DTensor) for _, t in state_leaves(state))
+        step_fn = make_train_step(cfg, flags, opt)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        with activation_rules(rules, mesh):
+            for i, b in enumerate(batches):
+                sync()
+                FK.reset_launches()
+                rmsnorm_cuda.launches = 0
+                t = time.perf_counter()
+                state, m = step_fn(state, b)
+                sync()
+                walls.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    launches = {"flash": FK.flash_attention_cuda.launches,
+                                "flash_by_route": dict(FK.launches_by_route),
+                                "rmsnorm": rmsnorm_cuda.launches}
+                    first = host_snapshot(state)
+                    first_m = {k: float(v) for k, v in m.items()}
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            # where a mesh step's time goes: one more step under the profiler
+            b = data.next_batch()
+            profile = device_profile(lambda: step_fn(state, b)[1]["loss"].item()) if on_card else None
+        want = {"flash": cfg.n_layers * 2, "rmsnorm": cfg.n_layers * 4 * 2 + 1} if on_card else None
+
+        # ---- a checkpoint from the mesh run, restored with its shardings ------
+        tmp = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
+        try:
+            ckpt = CheckpointManager(tmp, keep_n=1, async_save=False)
+            t = time.perf_counter()
+            ckpt.save(run["steps"], state)
+            ckpt.wait()
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            restored, meta = ckpt.restore(state, shardings=shardings)
+            sync()
+            restore_s = time.perf_counter() - t
+            saved = dict(state_leaves(state))
+            differ = [n for n, v in state_leaves(restored) if not torch.equal(whole(v), whole(saved[n]))]
+            same_placements = all(isinstance(v, DTensor) and v.placements == saved[n].placements
+                                  for n, v in state_leaves(restored))
+            n_leaves = len(saved)
+            del restored, saved
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del state
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- the unsharded kernel step from the same state and batch -------------
+        plain, pm = make_train_step(cfg, flags, opt)(init_train_state(cfg, seed=0, device=device), batches[0])
+        sync()
+        vs_plain, vs_ok = step_vs_plain(first, first_m, plain, pm)
+        n_params = len(first["params"])
+        with torch.no_grad():
+            bitwise = sum(torch.equal(first["params"][n], p.detach().to("cpu"))
+                          and torch.equal(first["m"][n], plain["opt"]["m"][n].to("cpu"))
+                          for n, p in plain["params"].named_parameters())
+        loss_bitwise = first_m["loss"] == float(pm["loss"])
+        del plain, first
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- (b) the shard_map MoE layer -------------------------------------------
+        moe = mesh_moe_check(moe_cfg, mesh, run["moe_batch"], run["moe_seq"], device, on_card)
+    finally:
+        dist.destroy_process_group()
+
+    step_s = sorted(walls[1:])[len(walls[1:]) // 2] if len(walls) > 1 else walls[0]
+    summary = dict(
+        model=cfg.name, layers=cfg.n_layers, mesh=[1, 1], batch=run["batch"], seq=run["seq"],
+        steps=run["steps"], state_placed=placed, launches_one_step=launches, want_launches=want,
+        vs_unsharded=vs_plain, unsharded_bitwise_equal_leaves=bitwise, leaves=n_params,
+        loss_bitwise=loss_bitwise, step_wall_s=step_s, step_walls_s=walls,
+        tokens_per_s=run["batch"] * run["seq"] / step_s, max_memory_allocated=peak, losses=losses,
+        profile=profile, train_same_call={k: beside[k] for k in ("step_wall_s", "tokens_per_s", "max_memory_allocated")}
+        if beside else None,
+        checkpoint=dict(leaves=n_leaves, differ=differ, same_placements=same_placements,
+                        save_s=save_s, restore_s=restore_s),
+        moe=dict(model=moe_cfg.name, experts=moe_cfg.n_experts, top_k=moe_cfg.top_k,
+                 d_model=moe_cfg.d_model, d_ff=moe_cfg.moe_d_ff, capacity_factor=moe_cfg.capacity_factor,
+                 batch=run["moe_batch"], seq=run["moe_seq"], dtype="float32", **moe),
+        card=card, seconds=time.perf_counter() - t_phase)
+    why = []
+    if not placed:
+        why.append("a state leaf is not a DTensor")
+    if want and (launches["flash"] != want["flash"] or launches["rmsnorm"] != want["rmsnorm"]
+                 or launches["flash_by_route"]["tensor_cores"] != want["flash"]):
+        why.append(f"launches {launches}, want {want} (flash all on the tensor-core route)")
+    if not vs_ok:
+        why.append("the mesh step is off the unsharded step")
+    if differ or not same_placements:
+        why.append(f"restored checkpoint: {len(differ)} leaves differ, placements kept: {same_placements}")
+    if not all(math.isfinite(x) for x in losses):
+        why.append("losses not finite")
+    if "error" in moe:
+        why.append(f"shard_map MoE: {moe['error']}")
+    elif (moe["y_err"] > MOE_SM_TOL or moe["aux_err"] > MOE_SM_TOL or not moe["grads_finite"]
+          or max(moe["grad_rel_to_max"].values()) > MOE_SM_TOL
+          or moe["exchanges"] != {"forward": 2, "backward": 2}):
+        why.append("shard_map MoE off the dense MoE, or not 2 + 2 exchanges")
+    if why:
+        fail("train_mesh", "; ".join(why), **summary)
+    emit("train_mesh", ok=True, **summary)
     return launches
 
 
@@ -3021,16 +3332,19 @@ def main() -> int:
     flash.update(flash_grad_phase(card))
     train_launches = train_phase(card)
     moe_train_launches = train_moe_phase(card)
+    mesh_launches = train_mesh_phase(card, beside=train_launches)
     flash["launches_by_path"] = {"serve": flash["launches"], "serve_moe": jamba["flash"],
                                  "serve_moe_qwen3": qwen_moe["flash"],
                                  "train_step": train_launches["flash"],
-                                 "train_moe_step": moe_train_launches["flash"]}
+                                 "train_moe_step": moe_train_launches["flash"],
+                                 "train_mesh_step": mesh_launches["flash"]}
     ssd_entry["launches_by_path"] = {"serve_mamba": ssd_entry["launches"], "serve_moe": jamba["ssd"]}
     rms_entry["launches_by_path"] = {"serve_mamba": rms_entry["launches"],
                                      "serve_moe": jamba["rmsnorm"],
                                      "serve_moe_qwen3": qwen_moe["rmsnorm"],
                                      "train_step": train_launches["rmsnorm"],
-                                     "train_moe_step": moe_train_launches["rmsnorm"]}
+                                     "train_moe_step": moe_train_launches["rmsnorm"],
+                                     "train_mesh_step": mesh_launches["rmsnorm"]}
 
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape

@@ -15,7 +15,17 @@ Guarantees:
     a background thread, overlapping serialization with the next steps;
   * restore places each leaf on the target leaf's device (or the one the
     caller names) in the target leaf's dtype: the files are device-free
-    numpy.
+    numpy;
+  * elastic restore — given ``shardings`` (``runtime.elastic.
+    state_shardings`` of the caller's current mesh), each leaf is placed
+    with its target placements, so a checkpoint written on one mesh
+    restores onto any other; a DTensor target leaf with no sharding given
+    keeps its own placements.
+
+On a mesh every leaf that is a DTensor is saved as its full tensor (a
+collective: every rank calls ``save`` at the same steps), so the layout
+stays topology-free, and only rank 0 writes; ``wait`` then holds every
+rank at a barrier until the write has landed.
 
 A state is a tree of dicts, lists and tuples, :class:`~repro_torch.models.
 model.ParamTree` modules (flattened through ``tree()``) and tensors; its
@@ -33,8 +43,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..models.model import ParamTree
+from ..runtime.elastic import place
+from ..sharding.rules import Sharding
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 
@@ -49,19 +63,22 @@ def _children(node) -> List[Tuple[str, Any]]:
     return []
 
 
-def _flatten(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(flat key, leaf) for every tensor leaf, in a fixed order (dict keys
-    sorted, as the reference's tree flattening)."""
-    if isinstance(tree, torch.Tensor):
+def _flatten(tree, prefix: str = "", leaf: type = torch.Tensor) -> List[Tuple[str, Any]]:
+    """(flat key, leaf) for every leaf (a ``leaf`` instance: a tensor, or a
+    ``Sharding`` in a shardings tree), in a fixed order (dict keys sorted,
+    as the reference's tree flattening)."""
+    if isinstance(tree, leaf):
         return [(prefix, tree)]
     out = []
     for key, child in _children(tree):
-        out += _flatten(child, f"{prefix}.{key}" if prefix else key)
+        out += _flatten(child, f"{prefix}.{key}" if prefix else key, leaf)
     return out
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy (never a view of the live tensor)."""
+    """A host copy of the full value (never a view of the live tensor)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
@@ -75,12 +92,7 @@ def _unflatten(target, load, prefix: str = ""):
     if isinstance(target, torch.Tensor):
         return load(prefix, target)
     if isinstance(target, ParamTree):
-        tree = _unflatten(target.tree(), load, prefix)
-        out = type(target)(tree)
-        want = dict(target.named_parameters())
-        for name, p in out.named_parameters():
-            p.requires_grad_(want[name].requires_grad)
-        return out
+        return target.map(lambda name, p: load(f"{prefix}.{name}" if prefix else name, p))
     key = (lambda k: f"{prefix}.{k}") if prefix else str
     if isinstance(target, dict):
         return {k: _unflatten(v, load, key(k)) for k, v in target.items()}
@@ -96,6 +108,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False  # a sharded save: every rank waits for rank 0's write
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
@@ -118,6 +131,10 @@ class CheckpointManager:
         self.wait()  # one outstanding async save at a time
         leaves = _flatten(state)
         host_leaves = [(k, _to_host(v)) for k, v in leaves]
+        if any(isinstance(v, DTensor) for _, v in leaves):
+            self._barrier = True
+            if dist.get_rank() != 0:
+                return
         meta = {
             "step": step,
             "extra": extra or {},
@@ -155,6 +172,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            dist.barrier()
+            self._barrier = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -165,10 +185,13 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, target: Any, step: Optional[int] = None, device=None) -> tuple:
+    def restore(self, target: Any, step: Optional[int] = None, device=None,
+                shardings: Any = None) -> tuple:
         """Restore into the structure of ``target`` (the state, or one of the
         same structure): each leaf in the target leaf's dtype, on ``device``
-        or else the target leaf's device. Returns (state, meta)."""
+        or else the target leaf's device; with ``shardings`` (the tree of
+        ``sharding.rules.Sharding`` that ``runtime.elastic.state_shardings``
+        gives) each leaf placed with its own. Returns (state, meta)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -176,6 +199,7 @@ class CheckpointManager:
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         stored = {leaf["key"]: leaf["dtype"] for leaf in meta["leaves"]}
+        placed = dict(_flatten(shardings, leaf=Sharding)) if shardings is not None else {}
 
         def load(key: str, tgt: torch.Tensor) -> torch.Tensor:
             arr = np.load(os.path.join(d, f"arr_{key}.npy"))
@@ -184,6 +208,11 @@ class CheckpointManager:
             t = torch.from_numpy(arr)
             if stored[key] == "bfloat16":
                 t = t.view(torch.bfloat16)
+            sharding = placed.get(key)
+            if sharding is None and isinstance(tgt, DTensor):
+                sharding = Sharding(tgt.device_mesh, (), tuple(tgt.placements))
+            if sharding is not None:
+                return place(t.to(tgt.dtype), sharding)
             return t.to(device=device if device is not None else tgt.device, dtype=tgt.dtype)
 
         return _unflatten(target, load), meta

@@ -15,6 +15,13 @@ same kernel (or plain version), its backward the analytic gradient of
 reference trains through the plain ``rms_norm``; no backward kernel exists
 there). Without autograd the call is a bare launch, as decode needs.
 
+A DTensor input (a step on a mesh) runs the same wrapper on each device's
+shard (``sharding.act.on_shards``): x is redistributed so that its last
+axis, the one the kernel reduces, is whole on every device (its other axes
+keep their sharding) and w is whole; on CUDA tensors every shard launches
+the kernel. This dispatch comes before the kernel/plain choice, so the
+CPU tests hold the same placements through the plain version.
+
 ``row_block`` is the reference's tiling knob and is kept in the signature;
 the CUDA kernel picks its own tiling (a warp or a block per row), so here
 any row count works, where the Pallas kernel needs ``row_block`` to divide it.
@@ -22,7 +29,9 @@ any row count works, where the Pallas kernel needs ``row_block`` to divide it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ...sharding.act import on_shards
 from .kernel import rmsnorm_cuda
 from .ref import rmsnorm_reference
 
@@ -71,6 +80,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             row_block: int = 256) -> torch.Tensor:
     if row_block <= 0:
         raise ValueError(f"row_block must be positive, got {row_block}")
+    if isinstance(x, DTensor):
+        return _on_mesh(x, w, eps)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNorm.apply(x, w, eps)
     return _forward(x, w, eps)
+
+
+def _on_mesh(x: DTensor, w: torch.Tensor, eps: float) -> DTensor:
+    """The normalised axis whole on every device, the rows as sharded."""
+    last = x.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) and p.dim != last else Replicate() for p in x.placements)
+    whole_w = (Replicate(),) * len(pl)
+    return on_shards(lambda a, b: rmsnorm(a, b, eps), (x, w), (pl, whole_w), [pl], work=pl)

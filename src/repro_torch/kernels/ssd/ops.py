@@ -14,6 +14,12 @@ The device of the inputs picks the path, and nothing else does:
 
 It keeps the reference's contract: ``chunk = min(chunk, S)`` must divide S.
 
+A DTensor x (a step on a mesh) runs the same wrapper on each device's
+shards (``sharding.act.on_shards``), before the kernel/plain choice: the
+sequence, P and N, which the kernel scans and reduces, are whole on every
+device; the batch rows and the heads keep their sharding (x, dt and a
+sharded alike on the heads, B and C whole over them).
+
 The kernel has no backward: under autograd (grad enabled and an input that
 needs a gradient) the call raises ``NotImplementedError`` rather than
 return a result that cuts the gradient. Mamba training runs
@@ -24,7 +30,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ...sharding.act import on_shards
 from .kernel import kernel_reads, route, ssd_cuda
 from .ref import ssd_reference
 
@@ -40,6 +48,8 @@ def ssd(
     c_mat: torch.Tensor,  # (B, S, N)
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if isinstance(x, DTensor):
+        return _on_mesh(x, dt, a, b_mat, c_mat, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
         raise NotImplementedError(SSD_GRAD_TODO)
     s = x.shape[1]
@@ -56,3 +66,15 @@ def ssd(
     if x.device.type == "cpu":
         return ssd_reference(x, dt, a, b_mat, c_mat, chunk=chunk)
     raise ValueError(f"ssd: no path for tensors on {x.device}")
+
+
+def _on_mesh(x: DTensor, dt, a, b_mat, c_mat, chunk: int):
+    """Batch rows and heads as sharded; sequence, P and N whole. Per mesh
+    dim: x's batch split splits dt, B, C, y and h alike; x's head split
+    splits dt and a alike (h on its dim 1) and leaves B and C whole."""
+    whole = Replicate()
+    rows = {Shard(0): (Shard(0), Shard(0), whole, Shard(0), Shard(0)),  # x, dt, a, B/C, h
+            Shard(2): (Shard(2), Shard(2), Shard(0), whole, Shard(1))}
+    x_pl, dt_pl, a_pl, bc_pl, h_pl = zip(*(rows.get(p, (whole,) * 5) for p in x.placements))
+    return on_shards(lambda *t: ssd(*t, chunk=chunk), (x, dt, a, b_mat, c_mat),
+                     (x_pl, dt_pl, a_pl, bc_pl, bc_pl), [x_pl, h_pl], work=x_pl)

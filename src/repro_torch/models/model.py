@@ -51,6 +51,8 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_reference
+from ..sharding.act import constrain, current_context, in_context
+from ..sharding.rules import axes
 from .flash_ref import flash_attention_ref
 from .layers import (
     _mm,
@@ -63,6 +65,7 @@ from .layers import (
 )
 from .mamba2 import mamba2_cache_init, mamba2_decode, mamba2_init, mamba2_prefill
 from .moe import moe_apply, moe_init
+from .moe_shard_map import moe_apply_shard_map
 
 _F32 = torch.float32
 
@@ -71,10 +74,11 @@ _F32 = torch.float32
 class RunFlags:
     """Per-call execution knobs: the reference's attention knobs, ``remat``,
     ``ssd_chunk`` and ``moe_impl``, and the port's kernel switches
-    ``ssd_impl`` and ``norm_impl`` (module docstring). ``moe_impl`` accepts
-    the reference's two values; the reference takes its dense path
-    whenever no mesh is set, and the port has no mesh, so ``"shard_map"``
-    computes the dense result."""
+    ``ssd_impl`` and ``norm_impl`` (module docstring). ``moe_impl =
+    "shard_map"`` takes ``models.moe_shard_map`` (local dispatch, expert
+    all-to-all) in sequence mode under an ``activation_rules`` context whose
+    model axis the experts divide; everywhere else it computes the dense
+    path, as the reference does."""
 
     attn_impl: str = "auto"  # "auto" | "full" | "blockwise" | "kernel"
     q_block: int = 512
@@ -83,7 +87,7 @@ class RunFlags:
     ssd_chunk: int = 64
     ssd_impl: str = "reference"  # "reference" | "kernel"
     norm_impl: str = "reference"  # "reference" | "kernel"
-    moe_impl: str = "dense"  # "dense" | "shard_map" (the dense path: no mesh)
+    moe_impl: str = "dense"  # "dense" | "shard_map" (EP local dispatch under a mesh context)
 
 
 def norm_fn(flags: RunFlags) -> Callable:
@@ -96,10 +100,16 @@ def norm_fn(flags: RunFlags) -> Callable:
     raise ValueError(f"unknown norm_impl {flags.norm_impl!r}")
 
 
-def _moe_fn(flags: RunFlags) -> Callable:
+def _shard_map_moe(flags: RunFlags, cfg: ModelConfig) -> bool:
+    """Whether a sequence-mode MoE layer takes ``moe_apply_shard_map``
+    rather than ``moe_apply``: as in the reference, where ``moe_impl ==
+    "shard_map"``, a context is installed and the experts divide the model
+    axis (EP)."""
     if flags.moe_impl not in ("dense", "shard_map"):
         raise ValueError(f"unknown moe_impl {flags.moe_impl!r}")
-    return moe_apply
+    ctx = current_context()
+    return (flags.moe_impl == "shard_map" and ctx is not None
+            and cfg.n_experts % axes(ctx[1]).shape.get("model", 1) == 0)
 
 
 def _ssd_fn(flags: RunFlags, s: int) -> Callable:
@@ -130,7 +140,7 @@ def _remat(fn: Callable, remat: str) -> Callable:
         return fn
     policy = {} if remat == "full" else {
         "context_fn": partial(create_selective_checkpoint_contexts, _save_dots)}
-    return partial(checkpoint, fn, use_reentrant=False, **policy)
+    return partial(checkpoint, in_context(fn), use_reentrant=False, **policy)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -161,6 +171,23 @@ class ParamTree(nn.Module):
             else:
                 self.register_parameter(key, nn.Parameter(val, requires_grad=False))
 
+    def map(self, fn: Callable[[str, torch.Tensor], torch.Tensor]) -> "ParamTree":
+        """A tree of this type and structure holding ``fn(name, parameter)``
+        for every parameter (``name`` as ``named_parameters()`` gives it),
+        each keeping its parameter's ``requires_grad``."""
+        def walk(node, prefix):
+            if isinstance(node, dict):
+                return {k: walk(v, f"{prefix}.{k}" if prefix else k) for k, v in node.items()}
+            if isinstance(node, list):
+                return [walk(v, f"{prefix}.{i}") for i, v in enumerate(node)]
+            return fn(prefix, node)
+
+        out = type(self)(walk(self.tree(), ""))
+        want = dict(self.named_parameters())
+        for name, p in out.named_parameters():
+            p.requires_grad_(want[name].requires_grad)
+        return out
+
     def tree(self) -> Dict[str, Any]:
         """The parameters back as a nested dict (the same tensors)."""
         out: Dict[str, Any] = dict(self._parameters)
@@ -187,9 +214,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     √d_model, norms zero, the Mamba-2 blocks as ``mamba2.mamba2_init`` and
     the MoE layers as ``moe.moe_init`` (the router f32); drawn in f32 from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA by
-    default), then cast to ``dtype``."""
+    default), then cast to ``dtype``. On the ``meta`` device the model has
+    its shapes and dtypes and no data."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device=dev if dev.type != "meta" else "cpu").manual_seed(seed)
 
     def normal(shape, scale, dt=dtype):
         return (torch.randn(shape, generator=gen, dtype=_F32, device=dev) * scale).to(dt)
@@ -256,12 +284,18 @@ def cast_params(params: Model, compute_dtype) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, norm: Callable):
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, norm: Callable, sequence: bool = False):
+    """q, k, v (B, S, heads, Dh), q/k-normed; ``sequence`` pins them to the
+    head layout, as the reference's sequence mode does (decode does not)."""
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _mm("bsd,de->bse", x, p["wq"]).reshape(b, s, h, dh)
     k = _mm("bsd,de->bse", x, p["wk"]).reshape(b, s, kh, dh)
     v = _mm("bsd,de->bse", x, p["wv"]).reshape(b, s, kh, dh)
+    if sequence:
+        q = constrain(q, ("batch", "seq", "act_heads", None))
+        k = constrain(k, ("batch", "seq", "act_kv_heads", "act_kv_dim"))
+        v = constrain(v, ("batch", "seq", "act_kv_heads", "act_kv_dim"))
     if cfg.qk_norm:
         q = norm(q, p["q_norm"], cfg.norm_eps)
         k = norm(k, p["k_norm"], cfg.norm_eps)
@@ -280,7 +314,7 @@ def _position(q, k, cfg: ModelConfig, positions, mrope_positions):
 
 def _attn_seq(p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions, want_cache: bool):
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, norm_fn(flags))
+    q, k, v = _qkv(p, x, cfg, norm_fn(flags), sequence=True)
     q, k = _position(q, k, cfg, positions, mrope_positions)
     impl = flags.attn_impl
     if impl == "auto":
@@ -326,16 +360,36 @@ def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_posi
     return _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
 
 
-def _mlp(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, norm: Callable):
+def _mlp(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, norm: Callable, sequence: bool):
     """The channel mixer with its residual: (x, the MoE aux loss, or None
-    where the position has no MoE layer)."""
+    where the position has no MoE layer). In ``sequence`` mode the mixer's
+    input is pinned to the block layout, except on the shard_map MoE path,
+    which places its own input (as in the reference)."""
     mk = cfg.mlp_kind_at(pos)
-    if mk == "dense":
-        x = x + mlp_apply(p["mlp"], norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_kind)
-    elif mk == "moe":
-        y, aux = _moe_fn(flags)(p["mlp"], norm(x, p["norm2"], cfg.norm_eps), cfg)
-        return x + y, aux
-    return x, None
+    if mk not in ("dense", "moe"):
+        return x, None
+    h2, aux = norm(x, p["norm2"], cfg.norm_eps), None
+    if mk == "moe" and _shard_map_moe(flags, cfg) and sequence:
+        rules, mesh = current_context()
+        y, aux = moe_apply_shard_map(p["mlp"], h2, cfg, mesh, rules)
+    else:
+        if sequence:
+            h2 = constrain(h2, ("batch", None, "act_embed"))
+        if mk == "dense":
+            y = mlp_apply(p["mlp"], h2, cfg.mlp_kind)
+        else:
+            y, aux = moe_apply(p["mlp"], h2, cfg)
+    return _residual(x, y, sequence), aux
+
+
+def _residual(x, h, sequence: bool):
+    """x + h. In ``sequence`` mode h first takes the residual stream's
+    layout (Megatron-SP's reduce-scatter at the add), so its gradient comes
+    back in h's own layout: the products behind h flatten (B, S) in their
+    backward, which a sequence-sharded gradient cannot take as a view."""
+    if sequence:
+        h = constrain(h, ("batch", "seq_res", "act_embed"))
+    return x + h
 
 
 def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions,
@@ -345,13 +399,15 @@ def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mro
     ``mamba2_prefill``, which takes the final SSM state from the layer's one
     SSD call (the reference's ``_mamba_prefill_cache`` recomputes it)."""
     norm = norm_fn(flags)
-    normed = norm(x, p["norm1"], cfg.norm_eps)
+    # the block input at full sequence: the residual stream may be
+    # sequence-sharded between blocks (the seq_res rule)
+    normed = constrain(norm(x, p["norm1"], cfg.norm_eps), ("batch", None, "act_embed"))
     if cfg.block_kinds[pos] == "attn":
         h, cache = _attn_seq(p["mixer"], normed, cfg, flags, positions, mrope_positions, want_cache)
     else:
         h, cache = mamba2_prefill(p["mixer"], normed, cfg, _ssd_fn(flags, x.shape[1]), norm)
         cache = cache if want_cache else None
-    x, aux = _mlp(pos, p, x + h, cfg, flags, norm)
+    x, aux = _mlp(pos, p, _residual(x, h, True), cfg, flags, norm, sequence=True)
     return x, cache, aux
 
 
@@ -365,7 +421,7 @@ def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int,
         h = _attn_decode(p["mixer"], h, cfg, cache, cur_index, mrope_positions, norm)
     else:
         h, _ = mamba2_decode(p["mixer"], h, cache, cfg, norm)
-    return _mlp(pos, p, x + h, cfg, flags, norm)[0]
+    return _mlp(pos, p, x + h, cfg, flags, norm, sequence=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +443,7 @@ def _head(p, cfg: ModelConfig, x: torch.Tensor, norm: Callable = rms_norm) -> to
         w = p["lm_head"].to(x.dtype)
     # the reference's bf16 product with f32 accumulation and f32 logits: the
     # operands widen to f32 exactly, so only the summation order differs
-    return torch.matmul(x.to(_F32), w.to(_F32))
+    return constrain(torch.matmul(x.to(_F32), w.to(_F32)), ("batch", "seq", "act_vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -404,11 +460,13 @@ def _sequence(p, cfg: ModelConfig, batch, flags: RunFlags, compute_dtype, want_c
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     mrope_positions = batch.get("mrope_positions")
+    x = constrain(x, ("batch", "seq_res", "act_embed"))
 
     def cycle_body(x, aux, layers):
         caches = []
         for pos, lp in enumerate(layers):
             x, cache, a = _block_seq(pos, lp, x, cfg, flags, positions, mrope_positions, want_cache)
+            x = constrain(x, ("batch", "seq_res", "act_embed"))
             caches.append(cache)
             if a is not None:  # the reference adds an exact 0 for the other layers
                 aux = aux + a

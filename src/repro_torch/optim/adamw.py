@@ -16,6 +16,13 @@ given, so the update's temporaries are a few copies of one group rather
 than of the whole tree. The ops are elementwise: each element sees the
 same operations in the same order whatever the grouping, so the result is
 bit for bit that of one whole-tree group.
+
+On a mesh the leaves are DTensors. The global norm is the norm of the
+whole tensors: each leaf's sum of squares is reduced over the mesh (a
+``Partial`` sum is never read before its reduction) before the leaves are
+summed. Each gradient is then redistributed to its parameter's placements
+(a ``Partial`` gradient is reduced there) and the elementwise update runs
+on the local shards, the same arithmetic as on whole tensors.
 """
 from __future__ import annotations
 
@@ -24,6 +31,9 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..sharding.act import whole
 
 _F32 = torch.float32
 Tree = Dict[str, torch.Tensor]
@@ -54,15 +64,20 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 def init(params: Tree) -> Dict[str, object]:
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=_F32, device=p.device) for k, p in params.items()}
+        return {k: torch.zeros_like(p, dtype=_F32) for k, p in params.items()}
 
     dev = next(iter(params.values())).device
     return {"m": zeros(), "v": zeros(), "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """√(Σ over leaves of each leaf's f32 sum of squares)."""
-    leaves = [x.to(_F32).square().sum() for x in tree.values()]
+    """√(Σ over leaves of each leaf's f32 sum of squares), a plain tensor
+    (DTensor leaves: each sum reduced over the mesh first)."""
+    leaves = [whole(x.to(_F32).square().sum()) for x in tree.values()]
     return torch.sqrt(torch.stack(leaves).sum())
 
 
@@ -81,6 +96,12 @@ def groups(params: Tree, group_bytes: int) -> List[List[str]]:
     return out
 
 
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if isinstance(g, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def update(grads: Tree, state: Dict[str, object], params: Tree,
            cfg: AdamWConfig) -> Tuple[Tree, Dict[str, object], Dict[str, torch.Tensor]]:
@@ -90,17 +111,17 @@ def update(grads: Tree, state: Dict[str, object], params: Tree,
     "grad_norm"}), the first two the objects passed in. ``grads`` may be
     overwritten (they are scaled in place)."""
     count = state["count"] + 1
-    lr = schedule(count, cfg)
+    lr = schedule(_local(count), cfg)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    cnt = count.to(_F32)
+    cnt = _local(count).to(_F32)
     bc1 = 1 - cfg.b1 ** cnt
     bc2 = 1 - cfg.b2 ** cnt
     for names in groups(params, GROUP_BYTES):
-        g = [grads[k].to(_F32) for k in names]
+        g = [_local(_placed_as(grads[k], params[k])).to(_F32) for k in names]
         torch._foreach_mul_(g, scale)
-        m = [state["m"][k] for k in names]
-        v = [state["v"][k] for k in names]
+        m = [_local(state["m"][k]) for k in names]
+        v = [_local(state["v"][k]) for k in names]
         # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g
         torch._foreach_mul_(m, cfg.b1)
         torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
@@ -108,7 +129,7 @@ def update(grads: Tree, state: Dict[str, object], params: Tree,
         torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
         del g
         # p = p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p)
-        p = [params[k] for k in names]
+        p = [_local(params[k]) for k in names]
         denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
         torch._foreach_add_(denom, cfg.eps)
         step = torch._foreach_div(torch._foreach_div(m, bc1), denom)

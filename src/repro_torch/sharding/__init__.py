@@ -1,3 +1,4 @@
 """The distribution design space of a step: logical axes of every tensor
-(``specs``) and the rules mapping them onto a mesh (``rules``). The pure
-half of the reference's ``repro.sharding``: no mesh object is built here."""
+(``specs``) and the rules mapping them onto a mesh (``rules``: the pure
+resolution, and the DTensor placements of a resolved spec), and the
+activation constraints that apply them inside a step (``act``)."""

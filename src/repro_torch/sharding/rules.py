@@ -13,15 +13,30 @@ The rules dict is *the* FARSI design point for the distributed layer — the
 autotuner's migrate move edits it, swap edits remat/microbatch knobs.
 
 A mesh here is any object with ``shape`` (a mapping from axis name to size)
-and ``axis_names``; ``resolve`` returns the placement tuple (one entry per
-dim: None, an axis name, or a tuple of names) that the reference wraps in
-``PartitionSpec(*parts)``. Building shardings on a real mesh is not part of
-this module.
+and ``axis_names``, or a ``DeviceMesh`` with named dims (:func:`axes` gives
+its view); ``resolve`` returns the spec (one entry per dim: None, an axis
+name, or a tuple of names) that the reference wraps in
+``PartitionSpec(*parts)``.
+
+The mesh half turns a spec into DTensor placements, one per mesh dim
+(:func:`placements`), and describes placed leaves without allocating them
+(:class:`Sharding`, :class:`ShardedStruct`, :func:`sharded_struct`,
+:func:`tree_sharded_structs`, :func:`tree_shardings`). A tensor dim sharded
+over a tuple of mesh axes shards in mesh order, the major axis first, as
+JAX's ``P(("pod", "data"))`` does; a tuple out of mesh order raises (DTensor
+would need a strided shard for it, and neither ``default_rules`` nor the
+autotuner's moves make one).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+import math
+from typing import Any, Callable, Dict, Tuple, Union
+
+import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.placement_types import Placement
 
 from ..configs.base import ModelConfig, ShapeConfig
 
@@ -52,6 +67,7 @@ class DistConfig:
 
 
 def default_rules(cfg: ModelConfig, shape: ShapeConfig, mesh: Any) -> Dict[str, Axes]:
+    mesh = axes(mesh)
     data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     # KV projections: shard over 'model' only when the kv-head count divides
     # it; otherwise replicate them (Megatron GQA-style — each model shard
@@ -134,3 +150,118 @@ def resolve(shape: Tuple[int, ...], logical, rules: Dict[str, Axes], mesh: Any) 
         else:
             parts.append(tuple(chosen))
     return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# the mesh half: placements on a DeviceMesh
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AxisSizes:
+    """The view of a mesh that ``resolve`` and ``default_rules`` read."""
+
+    shape: Dict[str, int]
+    axis_names: Tuple[str, ...]
+
+
+def axes(mesh: Any) -> Any:
+    """``mesh`` as ``resolve`` reads it: a ``DeviceMesh``'s named dims as
+    an :class:`AxisSizes`; any object whose ``shape`` is already a mapping
+    as it is."""
+    if isinstance(mesh.shape, dict):
+        return mesh
+    names = tuple(mesh.mesh_dim_names)
+    return AxisSizes(dict(zip(names, mesh.shape)), names)
+
+
+def placements(spec: Tuple[Axes, ...], mesh: Any) -> Tuple[Placement, ...]:
+    """One DTensor placement per mesh dim for a resolved ``spec``: the mesh
+    dims a tensor dim names shard that dim (several of them in mesh order,
+    the major one first), every other mesh dim replicates. Raises on an
+    axis the mesh lacks, an axis named twice, or a tuple out of mesh order."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        group = (part,) if isinstance(part, str) else tuple(part)
+        missing = [a for a in group if a not in names]
+        if missing:
+            raise ValueError(f"spec {spec}: axes {missing} are not in the mesh {names}")
+        idx = [names.index(a) for a in group]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {dim} shards over {group}, out of the mesh order "
+                             f"{names}; list the axes major first")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} shards two dims")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a leaf lives: the mesh, the resolved spec and its placements
+    (the counterpart of ``NamedSharding(mesh, spec)``)."""
+
+    mesh: Any
+    spec: Tuple[Axes, ...]
+    placements: Tuple[Placement, ...]
+
+    @classmethod
+    def of(cls, mesh: Any, spec: Tuple[Axes, ...]) -> "Sharding":
+        return cls(mesh, tuple(spec), placements(spec, mesh))
+
+    def local_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape of one device's shard of a ``shape`` leaf."""
+        return tuple(compute_local_shape_and_global_offset(shape, self.mesh, self.placements)[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedStruct:
+    """A placed leaf described, not allocated: the counterpart of
+    ``jax.ShapeDtypeStruct(shape, dtype, sharding=...)``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: Sharding
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return self.sharding.local_shape(self.shape)
+
+    @property
+    def local_nbytes(self) -> int:
+        return math.prod(self.local_shape) * self.dtype.itemsize
+
+
+def sharded_struct(struct, logical, rules: Dict[str, Axes], mesh: Any) -> ShardedStruct:
+    """A :class:`ShardedStruct` for ``struct`` (anything with ``shape`` and
+    ``dtype``) from its logical spec."""
+    spec = resolve(tuple(struct.shape), logical, rules, axes(mesh))
+    return ShardedStruct(tuple(struct.shape), struct.dtype, Sharding.of(mesh, spec))
+
+
+def _map_leaves(fn: Callable, struct_tree, logical_tree):
+    """``fn(leaf, logical)`` over the leaves of ``struct_tree`` (anything
+    with ``shape``), zipped with ``logical_tree`` (the same dicts and lists,
+    a tuple of logical names at each leaf); a module tree with ``tree()``
+    (a ``ParamTree``) is walked as its nested dict."""
+    if hasattr(struct_tree, "shape"):
+        return fn(struct_tree, logical_tree)
+    if hasattr(struct_tree, "tree"):
+        struct_tree = struct_tree.tree()
+    if isinstance(struct_tree, dict):
+        return {k: _map_leaves(fn, v, logical_tree[k]) for k, v in struct_tree.items()}
+    if isinstance(struct_tree, (list, tuple)):
+        return type(struct_tree)(_map_leaves(fn, v, l) for v, l in zip(struct_tree, logical_tree))
+    raise TypeError(f"not a tree node: {type(struct_tree).__name__}")
+
+
+def tree_sharded_structs(struct_tree, logical_tree, rules, mesh):
+    """Zip a tree of leaves with its logical-axis tree into ShardedStructs."""
+    return _map_leaves(lambda s, l: sharded_struct(s, l, rules, mesh), struct_tree, logical_tree)
+
+
+def tree_shardings(struct_tree, logical_tree, rules, mesh):
+    """The :class:`Sharding` of every leaf."""
+    return _map_leaves(lambda s, l: sharded_struct(s, l, rules, mesh).sharding, struct_tree, logical_tree)

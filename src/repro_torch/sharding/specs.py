@@ -10,7 +10,8 @@ The trees mirror the reference's ``init_params`` layout: ``layers`` is a
 list over cycle positions and each of its leaves carries a leading
 ``"layers"`` (stacking) axis. The port's model holds one entry per layer
 instead; layer ``i``'s parameter has the logical axes of position
-``i % cycle_len`` without that leading axis.
+``i % cycle_len`` without that leading axis (:func:`model_logical`, and
+by parameter name :func:`named_param_logical`).
 """
 from __future__ import annotations
 
@@ -93,6 +94,42 @@ def param_logical(cfg: ModelConfig) -> Dict[str, Any]:
         out["embed"] = ("vocab_table", "embed")
     if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
         out["lm_head"] = ("embed", "vocab")
+    return out
+
+
+def model_logical(cfg: ModelConfig) -> Dict[str, Any]:
+    """:func:`param_logical` in the layout of the port's ``Model``: one
+    entry of ``layers`` per layer, layer ``i`` holding position
+    ``i % cycle_len``'s logical axes without the stacking axis."""
+    stacked = param_logical(cfg)
+
+    def unstack(node):
+        if isinstance(node, dict):
+            return {k: unstack(v) for k, v in node.items()}
+        return node[1:]
+
+    out = dict(stacked)
+    out["layers"] = [unstack(stacked["layers"][i % cfg.cycle_len]) for i in range(cfg.n_layers)]
+    return out
+
+
+def named_param_logical(cfg: ModelConfig) -> Dict[str, L]:
+    """:func:`model_logical` flattened to the ``Model``'s parameter names
+    (``"layers.3.mixer.wq"``), the keys of ``named_parameters()`` and of the
+    AdamW moments."""
+    out: Dict[str, L] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}.{i}")
+        else:
+            out[prefix] = node
+
+    walk(model_logical(cfg), "")
     return out
 
 

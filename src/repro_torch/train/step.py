@@ -8,6 +8,12 @@ count}, step}; the step updates its tensors IN PLACE (the reference's
 launcher donates the state) and returns it.
 ``make_prefill_step`` / ``make_decode_step``: batched serving with the
 KV/SSM cache, both in bf16.
+
+On a mesh (a state placed by ``runtime.elastic.reshard_state``, the step
+called under ``sharding.act.activation_rules``) the same step runs on
+DTensors: the batch is the global batch on every rank, the constraints pin
+the hidden state and the logits as the reference's do, and the loss and
+metrics come back as whole values.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -31,6 +38,7 @@ from ..models.model import (
 )
 from ..models.model import decode_step as model_decode
 from ..optim import adamw
+from ..sharding.act import constrain, in_context, whole
 
 AUX_LOSS_WEIGHT = 0.01
 LOSS_CHUNKS = 8  # sequence chunks for the streamed LM-head CE
@@ -38,13 +46,20 @@ LOSS_CHUNKS = 8  # sequence chunks for the streamed LM-head CE
 _F32 = torch.float32
 
 
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit. A gather on plain tensors; on a DTensor, whose
+    vocab may be sharded over the model axis, the reference's masked
+    reduction over the vocab (DTensor's gather along a sharded dim fails),
+    which picks the same element exactly."""
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        return torch.where(vocab == labels[..., None], logits, 0.0).sum(-1)
+    return logits.gather(-1, labels[..., None].long())[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE. logits f32 (B, S, V); labels integer (B, S). The
-    gold logit is gathered (the reference's masked reduction over the vocab
-    picks the same element: it exists there for a vocab-sharded mesh)."""
-    logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    """Mean next-token CE. logits f32 (B, S, V); labels integer (B, S)."""
+    return (torch.logsumexp(logits, -1) - _gold(logits, labels)).mean()
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -58,9 +73,8 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, 
 def _chunk_ce(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     # the reference's bf16 product with f32 accumulation and f32 logits: the
     # operands widen to f32 exactly, so only the summation order differs
-    logits = torch.matmul(h.to(_F32), head_w.to(_F32))
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, -1) - gold).sum()
+    logits = constrain(torch.matmul(h.to(_F32), head_w.to(_F32)), ("batch", "seq", "act_vocab"))
+    return (torch.logsumexp(logits, -1) - _gold(logits, labels)).sum()
 
 
 def chunked_ce_loss(
@@ -76,7 +90,8 @@ def chunked_ce_loss(
     cs = s // n_chunks
     fn = _chunk_ce
     if torch.is_grad_enabled():
-        fn = lambda *a: checkpoint(_chunk_ce, *a, use_reentrant=False)  # noqa: E731
+        chunk = in_context(_chunk_ce)  # the recompute constrains as the forward did
+        fn = lambda *a: checkpoint(chunk, *a, use_reentrant=False)  # noqa: E731
     tot = torch.zeros((), dtype=_F32, device=hidden.device)
     for c in range(n_chunks):
         sl = slice(c * cs, (c + 1) * cs)
@@ -112,17 +127,24 @@ def make_train_step(
     flags: RunFlags,
     opt_cfg: adamw.AdamWConfig,
     microbatches: int = 1,
+    compute_dtype: torch.dtype = torch.bfloat16,
 ):
     """Training step with optional gradient accumulation: the global batch
     is split into ``microbatches`` sequential chunks whose f32 grads
     accumulate, then average, before one AdamW update. Each microbatch's
     forward and backward run before the next starts, so only one
-    microbatch's activations are live."""
+    microbatch's activations are live. ``compute_dtype`` is the forward's
+    (the reference's bf16; f32 for parity checks whose bar is f32's)."""
 
     def loss_fn(params: Model, mb):
-        hidden, aux = forward_hidden(params, cfg, mb, flags)
-        ce = chunked_ce_loss(hidden, head_matrix(params, cfg), mb["labels"])
-        return ce + AUX_LOSS_WEIGHT * aux, ce, aux
+        hidden, aux = forward_hidden(params, cfg, mb, flags, compute_dtype)
+        # re-gather the SP-sharded sequence before the chunked head
+        hidden = constrain(hidden, ("batch", None, "act_embed"))
+        ce = chunked_ce_loss(hidden, head_matrix(params, cfg, compute_dtype), mb["labels"])
+        loss = ce + AUX_LOSS_WEIGHT * aux
+        if isinstance(loss, DTensor):  # differentiate the one global loss, not per-rank shares
+            loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
+        return loss, ce, aux
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params: Model = state["params"]
@@ -141,7 +163,7 @@ def make_train_step(
                 grads = [x.to(_F32) for x in g]
             else:
                 torch._foreach_add_(grads, [x.to(_F32) for x in g])
-            ce, aux = ce + ce_i.detach(), aux + aux_i.detach()
+            ce, aux = ce + whole(ce_i.detach()), aux + whole(aux_i.detach())
         if microbatches > 1:
             torch._foreach_div_(grads, float(microbatches))
             ce, aux = ce / microbatches, aux / microbatches

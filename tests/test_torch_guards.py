@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
                   "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
                   "test_torch_gpu_serve.py", "test_torch_gpu_train.py", "test_torch_gpu_moe.py",
-                  "test_torch_gpu_analysis.py")
+                  "test_torch_gpu_analysis.py", "test_torch_gpu_mesh.py")
 
 
 def port_sources(ext=".py"):
@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "optim/adamw.py", "optim/compress.py", "train/step.py", "data/pipeline.py",
                    "checkpoint/manager.py", "launch/train.py", "sharding/rules.py",
                    "sharding/specs.py", "roofline/analytic.py", "core/tpu_design.py",
-                   "launch/autotune.py"):
+                   "launch/autotune.py", "launch/mesh.py", "sharding/act.py",
+                   "models/moe_shard_map.py", "runtime/elastic.py"):
         assert os.path.join(PORT, module) in files, module
     bad = [
         (os.path.relpath(p, ROOT), line, mod)
