@@ -2750,24 +2750,15 @@ def state_leaves(state):
 
 
 def collective_counts(fn):
-    """(fn(), {collective op: calls}) with every c10d op ``fn`` dispatches
-    counted (``wait_tensor`` and the autograd wrapper ops left out)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """(fn(), {category: collective ops}, {op name: calls}) for every
+    collective ``fn`` dispatches, DTensor's own redistributions included
+    (``roofline.hlo.StepCounter``; ``wait_tensor`` is not counted)."""
+    from repro_torch.roofline.hlo import StepCounter
+    from repro_torch.roofline.hlo import collective_counts as by_category
 
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = {}
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = str(func)
-            if "c10d" in name and "wait_tensor" not in name and "_wrap_tensor" not in name:
-                self.ops[name] = self.ops.get(name, 0) + 1
-            return func(*args, **(kwargs or {}))
-
-    with Count() as c:
+    with StepCounter() as c:
         out = fn()
-    return out, c.ops
+    return out, by_category(c), dict(c.ops)
 
 
 def mesh_moe_check(cfg, mesh, batch: int, seq: int, device, on_card: bool) -> dict:
@@ -2821,8 +2812,8 @@ def mesh_moe_check(cfg, mesh, batch: int, seq: int, device, on_card: bool) -> di
     t = time.perf_counter()
     try:
         with sync_errors()() if on_card else contextlib.nullcontext():
-            (fwd, loss), fwd_ops = collective_counts(sharded)
-            _, bwd_ops = collective_counts(lambda: loss.backward())
+            (fwd, loss), fwd_cat, fwd_ops = collective_counts(sharded)
+            _, bwd_cat, bwd_ops = collective_counts(lambda: loss.backward())
         sync()
     except RuntimeError as e:
         return {"error": str(e)[:300]}
@@ -2830,13 +2821,13 @@ def mesh_moe_check(cfg, mesh, batch: int, seq: int, device, on_card: bool) -> di
     (y_s, aux_s), g_s = fwd, [p.grad for p in leaves]
     names = ["x"] + list(params)
     grads = {n: rel_to_max(a, b) for n, a, b in zip(names, g_s, g_d)}
-    exchanges = {"forward": sum(v for k, v in fwd_ops.items() if "all_to_all" in k),
-                 "backward": sum(v for k, v in bwd_ops.items() if "all_to_all" in k)}
+    exchanges = {"forward": fwd_cat["all-to-all"], "backward": bwd_cat["all-to-all"]}
     out = dict(
         y_err=((y_s - y_d).abs().max() / y_d.abs().max().clamp_min(1.0)).item(),
         aux_err=abs(aux_s.item() - aux_d.item()), aux=aux_s.item(), grad_rel_to_max=grads,
         grads_finite=all(bool(torch.isfinite(gr).all()) for gr in g_s), exchanges=exchanges,
-        collectives_forward=fwd_ops, collectives_backward=bwd_ops, sync_free=on_card,
+        collectives_forward=fwd_cat, collectives_backward=bwd_cat, collective_ops_forward=fwd_ops,
+        collective_ops_backward=bwd_ops, sync_free=on_card,
         dense_fwd_bwd_s=dense_s, shard_map_fwd_bwd_s=sharded_s, tol=MOE_SM_TOL)
     del params, x, leaves, g_d, g_s
     return out
@@ -3013,6 +3004,173 @@ def train_mesh_phase(card: str, cfg=None, moe_cfg=None, device="cuda", beside=No
     return launches
 
 
+DRYRUN = dict(arch="qwen3-1.7b", reduced=False, layers=0, seq=2048, batch=4, device_type="cuda")
+DRYRUN_PEAK_TOL = 0.05  # predicted peak (argument + temp bytes) against max_memory_allocated
+DRYRUN_CELLS = (("mamba2-370m", "decode_32k", False), ("qwen2-vl-2b", "decode_32k", True),
+                ("qwen3-1.7b", "decode_32k", False))  # the reference test's two cells, and Qwen3-1.7B
+
+
+def dryrun_cell(spec: dict):
+    """The cross-check's cell: (cfg, shape, DistConfig). Qwen3-1.7B at the
+    train phase's shape with the flash kernel, remat full, one microbatch;
+    ``spec`` may cut it (``reduced``, ``layers``) to rehearse on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.sharding.rules import DistConfig
+
+    cfg = (reduced_config if spec["reduced"] else get_config)(spec["arch"])
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    shape = ShapeConfig("train", spec["seq"], spec["batch"], "train")
+    return cfg, shape, DistConfig(rules={}, attn_impl="kernel", remat="full", microbatches=1)
+
+
+def dryrun_child(spec: dict) -> int:
+    """``chip_smoke.py --dryrun-child SPEC``: the cross-check's dry run, the
+    cell of ``spec`` on a (1, 1) mesh of ``spec["device_type"]`` under the
+    fake process group at world 1, on meta tensors; prints its record as
+    the last line."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, shape, dist = dryrun_cell(spec)
+    with D.fake_world(1):
+        mesh = make_host_mesh(1, spec["device_type"])
+        fn, args, mesh, kind, dist = D.build_cell(cfg, shape, False, dist, mesh=mesh)
+        rec = D.run_step(fn, args, kind, mesh, dist.rules)
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, **overrides) -> dict:
+    """Phase ``dryrun``: (a) the dry run of the cross-check cell
+    (:func:`dryrun_cell`) against the same step run for real: on a (1, 1)
+    NCCL mesh (gloo on the CPU), state and batch placed by
+    ``launch.dryrun.build_cell`` (``runtime.elastic.place``), with the
+    ``RunFlags`` the dry run builds from the cell's ``DistConfig`` (the
+    flash kernel, the plain RMSNorm), under ``roofline.hlo.StepCounter``;
+    the dry run in a child process under the fake group at world 1 on meta
+    tensors. Collectives by category (count and bytes), flash calls against
+    the card's launches, argument bytes, and the predicted peak (argument +
+    temp bytes) against ``max_memory_allocated`` from a reset (less what
+    the process held beside the arguments), within
+    :data:`DRYRUN_PEAK_TOL`. (b) ``python -m repro_torch.launch.dryrun``
+    in a subprocess for each of ``cells``: each must be ``ok``. ``device``
+    and ``overrides`` of :data:`DRYRUN` exist to rehearse the phase on the
+    CPU. Returns the flash launches of the real step."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    t_phase = time.perf_counter()
+    spec = dict(DRYRUN, **overrides)
+    kind = torch.device(device).type
+    on_card = kind == "cuda"
+    cfg, shape, dist_cfg = dryrun_cell(spec)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+    # ---- (a) the real step ---------------------------------------------------
+    init_process_group(kind)
+    try:
+        mesh = make_host_mesh(1, kind)
+        fn, args, mesh, step_kind, dist_cfg = D.build_cell(cfg, shape, False, dist_cfg, mesh=mesh,
+                                                           device=device)
+        real_args = D.local_bytes(args)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            beside_args = torch.cuda.memory_allocated() - real_args  # whatever else this process holds
+            torch.cuda.reset_peak_memory_stats()
+        FK.reset_launches()
+        t = time.perf_counter()
+        real = D.run_step(fn, args, step_kind, mesh, dist_cfg.rules)
+        if on_card:
+            torch.cuda.synchronize()
+            measured_peak = torch.cuda.max_memory_allocated() - beside_args
+        real_s = time.perf_counter() - t
+        launches = FK.flash_attention_cuda.launches
+        del fn, args
+    finally:
+        dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (a) the dry run, in a child process --------------------------------------
+    spec_child = dict(spec, device_type=kind)
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--dryrun-child",
+                            json.dumps(spec_child)], capture_output=True, text=True, timeout=900,
+                           cwd=HERE, env=env)
+    child_s = time.perf_counter() - t
+    if child.returncode != 0:
+        fail("dryrun", "the dry-run child failed", rc=child.returncode, stderr=child.stderr[-3000:])
+    dry = json.loads(child.stdout.strip().splitlines()[-1])
+    predicted_peak = dry["memory"]["argument_bytes"] + dry["memory"]["temp_bytes"]
+    cross = dict(
+        model=cfg.name, layers=cfg.n_layers, batch=shape.global_batch, seq=shape.seq_len, mesh=[1, 1],
+        dist=dict(attn_impl="kernel", remat="full", microbatches=1, norm_impl="reference"),
+        collective_counts={"card": real["collective_counts"], "dry_run": dry["collective_counts"]},
+        collectives={"card": real["collectives"], "dry_run": dry["collectives"]},
+        flash={"card_launches": launches, "card_counted": real["kernels"]["flash"],
+               "dry_run": dry["kernels"]["flash"], "want": 2 * cfg.n_layers},
+        argument_bytes={"card": real_args, "dry_run": dry["memory"]["argument_bytes"]},
+        peak_bytes={"card_max_memory_allocated": measured_peak if on_card else None,
+                    "dry_run_predicted": predicted_peak,
+                    "card_counted": real_args + real["memory"]["temp_bytes"],
+                    "rel_err": (predicted_peak - measured_peak) / measured_peak if on_card else None,
+                    "tol": DRYRUN_PEAK_TOL},
+        card_step_s=real_s, dry_run_trace_s=dry["trace_s"], child_s=child_s,
+        cost={"card": real["cost"], "dry_run": dry["cost"]})
+
+    # ---- (b) production cells ------------------------------------------------------
+    prod, tmp = [], tempfile.mkdtemp(prefix="dryrun_cells_")
+    try:
+        for arch, shape_name, multi_pod in cells:
+            t = time.perf_counter()
+            out_dir = os.path.join(tmp, f"{arch}_{shape_name}_{int(multi_pod)}")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape_name,
+                   "--out", out_dir, "--device", kind] + (["--multi-pod"] if multi_pod else [])
+            run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+            recs = [json.load(open(os.path.join(out_dir, f))) for f in sorted(os.listdir(out_dir))] \
+                if os.path.isdir(out_dir) else []
+            rec = recs[0] if recs else {"arch": arch, "shape": shape_name, "ok": False,
+                                        "error": run.stderr[-2000:]}
+            rec.update(rc=run.returncode, seconds=time.perf_counter() - t)
+            print(json.dumps({"dryrun_cell": {k: v for k, v in rec.items() if k != "traceback"}}), flush=True)
+            prod.append(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    summary = dict(crosscheck=cross, cells=[{k: r.get(k) for k in ("arch", "shape", "mesh", "ok", "rc",
+                                                                   "seconds", "trace_s", "error")}
+                                            for r in prod],
+                   card=card, seconds=time.perf_counter() - t_phase)
+    why = []
+    if real["collective_counts"] != dry["collective_counts"] or real["collectives"] != dry["collectives"]:
+        why.append("collectives differ between the card's step and the dry run")
+    if dry["kernels"]["flash"] != 2 * cfg.n_layers or (on_card and launches != dry["kernels"]["flash"]):
+        why.append(f"flash: {dry['kernels']['flash']} dry-run calls, {launches} launches")
+    if real_args != dry["memory"]["argument_bytes"]:
+        why.append("argument bytes differ")
+    if on_card and abs(predicted_peak - measured_peak) > DRYRUN_PEAK_TOL * measured_peak:
+        why.append(f"predicted peak {predicted_peak} against {measured_peak} measured")
+    bad = [f"{r['arch']} × {r['shape']}: {r.get('error', '')[:300]}" for r in prod if not r["ok"] or r["rc"]]
+    if bad:
+        why.append("cells not ok: " + "; ".join(bad))
+    if why:
+        fail("dryrun", "; ".join(why), **summary)
+    emit("dryrun", ok=True, **summary)
+    return {"flash": launches}
+
+
 PHASE_OUTPUT_CASES = [("ar_complex", n, b) for n in (1, 2, 3) for b in TIMING_BATCHES] + [
     (t, n, b) for t in (1, 31, 33, 100) for n in (1, 2, 8) for b in (4, 4096)] + [
     (t, n, 4) for t in (257, 1024) for n in (1, 2, 8)]
@@ -3140,7 +3298,11 @@ def main() -> int:
     ap.add_argument("--outputs", default=None,
                     help="with --kernel-times: save the phase-sim outputs to this file, or, where "
                          "it exists, count the outputs that differ from it bit for bit")
+    ap.add_argument("--dryrun-child", default=None, metavar="SPEC",
+                    help="internal: the dryrun phase's dry run of the cell SPEC (JSON)")
     args = ap.parse_args()
+    if args.dryrun_child:
+        return dryrun_child(json.loads(args.dryrun_child))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3333,11 +3495,13 @@ def main() -> int:
     train_launches = train_phase(card)
     moe_train_launches = train_moe_phase(card)
     mesh_launches = train_mesh_phase(card, beside=train_launches)
+    dryrun_launches = dryrun_phase(card)
     flash["launches_by_path"] = {"serve": flash["launches"], "serve_moe": jamba["flash"],
                                  "serve_moe_qwen3": qwen_moe["flash"],
                                  "train_step": train_launches["flash"],
                                  "train_moe_step": moe_train_launches["flash"],
-                                 "train_mesh_step": mesh_launches["flash"]}
+                                 "train_mesh_step": mesh_launches["flash"],
+                                 "dryrun_crosscheck_step": dryrun_launches["flash"]}
     ssd_entry["launches_by_path"] = {"serve_mamba": ssd_entry["launches"], "serve_moe": jamba["ssd"]}
     rms_entry["launches_by_path"] = {"serve_mamba": rms_entry["launches"],
                                      "serve_moe": jamba["rmsnorm"],

@@ -17,8 +17,11 @@ import math
 from typing import Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..sharding.act import on_shards, shard_index
 from .flash_ref import _fwd_impl
 
 NEG_INF = -1e30  # finite, as the reference's: exp(NEG_INF - m) underflows to 0
@@ -130,16 +133,76 @@ def attention_decode(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cur_index: int
 ) -> torch.Tensor:
     """One-token decode against a (B, S, K, Dh) KV cache; positions strictly
-    after ``cur_index`` are masked. q: (B, 1, H, Dh)."""
+    after ``cur_index`` are masked. q: (B, 1, H, Dh). A DTensor cache (a
+    mesh) runs on each device's shards (:func:`_decode_on_shards`)."""
+    if isinstance(k_cache, DTensor):
+        return _decode_on_shards(q, k_cache, v_cache, cur_index)
+    return _decode(q, k_cache, v_cache, cur_index, 1.0 / math.sqrt(q.shape[-1]))
+
+
+def _decode(q, k_cache, v_cache, cur_index: int, scale: float, s_offset: int = 0,
+            dh_groups=(), seq_groups=()) -> torch.Tensor:
+    """:func:`attention_decode` on one device's shards: the partial scores of
+    a head dim split over ``dh_groups`` summed over them (the reference's
+    split-contraction decode), a sequence split over ``seq_groups`` (this
+    shard's positions from ``s_offset``) softmaxed over all of it, the
+    probabilities rounded to the cache's dtype as on one device."""
     b, _, h, dh = q.shape
     kheads = k_cache.shape[2]
-    scale = 1.0 / math.sqrt(dh)
-    scores = _gqa_scores(q.reshape(b, 1, kheads, h // kheads, dh), k_cache) * scale
-    valid = torch.arange(k_cache.shape[1], device=q.device) <= cur_index  # (S,)
+    scores = _gqa_scores(q.reshape(b, 1, kheads, h // kheads, dh), k_cache)
+    for g in dh_groups:
+        scores = funcol.all_reduce(scores, "sum", g)
+    scores = scores * scale
+    valid = s_offset + torch.arange(k_cache.shape[1], device=q.device) <= cur_index  # (S,)
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, -1)
-    out = _mm("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, dh)
+    if not seq_groups:
+        probs = torch.softmax(scores, -1)
+        out = _mm("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype), v_cache)
+        return out.reshape(b, 1, h, dh)
+    m = scores.amax(-1, keepdim=True)
+    for g in seq_groups:
+        m = funcol.all_reduce(m, "max", g)
+    p = torch.exp(scores - m)
+    total = p.sum(-1, keepdim=True)
+    for g in seq_groups:
+        total = funcol.all_reduce(total, "sum", g)
+    probs = (p / total).to(v_cache.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(_F32), v_cache.to(_F32))
+    for g in seq_groups:
+        out = funcol.all_reduce(out, "sum", g)
+    return out.to(v_cache.dtype).reshape(b, 1, h, dh)
+
+
+def _decode_on_shards(q, k_cache: DTensor, v_cache: DTensor, cur_index: int) -> DTensor:
+    """Decode attention where the cache is placed: each device attends with
+    its cache shard as it lies (a whole-cache gather per step would move
+    the cache), q taking the cache's layout. Per mesh dim the cache shards
+    the batch (q and the output alike), the KV heads (q and the output on
+    their query heads), the head dim (q and the output alike; the scores
+    summed over the dim's devices) or the sequence (q whole; the softmax
+    and the output reduced over the dim's devices)."""
+    mesh = k_cache.device_mesh
+    q_pl, out_pl, dh_groups, seq_dims = [], [], [], []
+    for i, p in enumerate(k_cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            seq_dims.append(i)
+            p = Replicate()
+        elif isinstance(p, Shard) and p.dim == 3:
+            dh_groups.append((mesh, i))
+        elif not isinstance(p, Shard):
+            p = Replicate()
+        q_pl.append(p)
+        out_pl.append(p)
+    chunk = shard_index(mesh, seq_dims)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def local(ql, kl, vl):
+        return _decode(ql, kl, vl, cur_index, scale, chunk * kl.shape[1], dh_groups,
+                       [(mesh, i) for i in seq_dims])
+
+    kv_pl = tuple(k_cache.placements)
+    return on_shards(local, (q, k_cache, v_cache), (tuple(q_pl), kv_pl, kv_pl), [tuple(out_pl)],
+                     work=tuple(out_pl))
 
 
 # ---------------------------------------------------------------------------

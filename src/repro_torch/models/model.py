@@ -43,7 +43,9 @@ from functools import partial
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
@@ -51,7 +53,15 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_reference
-from ..sharding.act import constrain, current_context, in_context
+from ..sharding.act import (
+    attention_on_shards,
+    constrain,
+    current_context,
+    in_context,
+    merge_heads,
+    unflatten,
+    write_position,
+)
 from ..sharding.rules import axes
 from .flash_ref import flash_attention_ref
 from .layers import (
@@ -287,11 +297,11 @@ def cast_params(params: Model, compute_dtype) -> Dict[str, Any]:
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, norm: Callable, sequence: bool = False):
     """q, k, v (B, S, heads, Dh), q/k-normed; ``sequence`` pins them to the
     head layout, as the reference's sequence mode does (decode does not)."""
-    b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _mm("bsd,de->bse", x, p["wq"]).reshape(b, s, h, dh)
-    k = _mm("bsd,de->bse", x, p["wk"]).reshape(b, s, kh, dh)
-    v = _mm("bsd,de->bse", x, p["wv"]).reshape(b, s, kh, dh)
+    kv = ("batch", "seq", "act_kv_heads", "act_kv_dim")
+    q = unflatten(_mm("bsd,de->bse", x, p["wq"]), 2, (h, dh), ("batch", "seq", "act_heads", None))
+    k = unflatten(_mm("bsd,de->bse", x, p["wk"]), 2, (kh, dh), kv)
+    v = unflatten(_mm("bsd,de->bse", x, p["wv"]), 2, (kh, dh), kv)
     if sequence:
         q = constrain(q, ("batch", "seq", "act_heads", None))
         k = constrain(k, ("batch", "seq", "act_kv_heads", "act_kv_dim"))
@@ -313,21 +323,24 @@ def _position(q, k, cfg: ModelConfig, positions, mrope_positions):
 
 
 def _attn_seq(p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_positions, want_cache: bool):
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _qkv(p, x, cfg, norm_fn(flags), sequence=True)
     q, k = _position(q, k, cfg, positions, mrope_positions)
     impl = flags.attn_impl
     if impl == "auto":
         impl = "full" if s <= 1024 else "blockwise"
     if impl == "kernel":
-        out = flash_attention(q, k, v, causal=True)
-    elif impl == "blockwise":
-        out = flash_attention_ref(q, k, v, True, min(flags.q_block, s), min(flags.kv_block, s))
-    elif impl == "full":
-        out = attention_full(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True)  # on a mesh, on the shards as below
     else:
-        raise ValueError(f"unknown attn_impl {flags.attn_impl!r}")
-    y = _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
+        if impl == "blockwise":
+            fn = partial(flash_attention_ref, causal=True, q_block=min(flags.q_block, s),
+                         kv_block=min(flags.kv_block, s))
+        elif impl == "full":
+            fn = partial(attention_full, causal=True)
+        else:
+            raise ValueError(f"unknown attn_impl {flags.attn_impl!r}")
+        out = attention_on_shards(fn, q, k, v) if isinstance(q, DTensor) else fn(q, k, v)
+    y = _mm("bse,ed->bsd", merge_heads(out), p["wo"])
     return y, ({"k": k, "v": v} if want_cache else None)
 
 
@@ -347,17 +360,17 @@ def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_posi
     if "k_scale" in cache:  # int8 KV cache (per-token, per-head absmax)
         for name, t in (("k", k), ("v", v)):
             tq, ts = _quantize(t)
-            cache[name][:, cur_index] = tq[:, 0]
-            cache[f"{name}_scale"][:, cur_index] = ts[:, 0]
+            write_position(cache[name], cur_index, tq[:, 0])
+            write_position(cache[f"{name}_scale"], cur_index, ts[:, 0])
         bf16 = torch.bfloat16
         k_cache = cache["k"].to(bf16) * cache["k_scale"].to(bf16)[..., None]
         v_cache = cache["v"].to(bf16) * cache["v_scale"].to(bf16)[..., None]
     else:
-        cache["k"][:, cur_index] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, cur_index] = v[:, 0].to(cache["v"].dtype)
+        write_position(cache["k"], cur_index, k[:, 0].to(cache["k"].dtype))
+        write_position(cache["v"], cur_index, v[:, 0].to(cache["v"].dtype))
         k_cache, v_cache = cache["k"], cache["v"]
     out = attention_decode(q, k_cache, v_cache, cur_index)
-    return _mm("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
+    return _mm("bse,ed->bsd", merge_heads(out), p["wo"])
 
 
 def _mlp(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, norm: Callable, sequence: bool):
@@ -428,7 +441,9 @@ def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int,
 # embeddings / head
 # ---------------------------------------------------------------------------
 def _embed(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor], compute_dtype) -> torch.Tensor:
-    x = p["embed"][batch["tokens"]] if cfg.input_mode == "tokens" else batch["embeds"]
+    # an embedding lookup, the reference's gather: DTensor shards it (and
+    # its backward) where a sharded index into a table trips the card's torch
+    x = F.embedding(batch["tokens"], p["embed"]) if cfg.input_mode == "tokens" else batch["embeds"]
     x = x.to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)

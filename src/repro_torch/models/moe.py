@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..sharding.act import constrain, gathered
+from ..sharding.act import constrain, flatten, gathered, unflatten
 from .layers import _mm
 
 _F32 = torch.float32
@@ -130,7 +130,7 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     c = capacity(t, cfg)
-    xf = x.reshape(t, d)
+    xf = flatten(x, 0, 1)
 
     probs, gate_vals, expert_idx = route(xf, params["router"], k)  # (T, E), (T, k), (T, k)
     flat_e = gathered(expert_idx.reshape(t * k))  # place 1 (module docstring)
@@ -166,5 +166,5 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
     # dropped one gathers slot 0 and is zeroed), sum over the k experts
     h_flat = gathered(h).reshape(e * c, d)  # place 3
     weight = (gate_vals.reshape(t * k, 1) * keep[:, None]).to(h.dtype)
-    y = constrain(h_flat[slot] * weight, ("moe_flat", None)).reshape(t, k, d).sum(1)
-    return y.reshape(b, s, d), aux
+    y = unflatten(constrain(h_flat[slot] * weight, ("moe_flat", None)), 0, (t, k), ("moe_flat", None, None))
+    return unflatten(y.sum(1), 0, (b, s), ("batch", "seq", "act_embed")), aux

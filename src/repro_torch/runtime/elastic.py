@@ -17,7 +17,7 @@ places every leaf with it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
@@ -82,14 +82,16 @@ def place(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
                              sharding.placements)
 
 
-def reshard_state(state: Dict[str, Any], shardings: Dict[str, Any]) -> Dict[str, Any]:
+def reshard_state(state: Dict[str, Any], shardings: Dict[str, Any],
+                  placer: Callable[[torch.Tensor, Sharding], torch.Tensor] = place) -> Dict[str, Any]:
     """Re-place every leaf with its new sharding (across meshes through the
-    full tensor). The parameters come back as a ``Model`` of DTensor
+    full tensor), by ``placer`` (:func:`place`; the dry run places meta
+    shards). The parameters come back as a ``Model`` of DTensor
     parameters, each keeping its ``requires_grad``."""
     params, named = state["params"], _flat_params(state)
-    placed = {n: place(p.detach(), shardings["params"][n]) for n, p in named.items()}
+    placed = {n: placer(p.detach(), shardings["params"][n]) for n, p in named.items()}
     model = params.map(lambda n, _: placed[n]) if isinstance(params, ParamTree) else placed
-    opt = {key: {n: place(t, shardings["opt"][key][n]) for n, t in state["opt"][key].items()}
+    opt = {key: {n: placer(t, shardings["opt"][key][n]) for n, t in state["opt"][key].items()}
            for key in ("m", "v")}
-    opt["count"] = place(state["opt"]["count"], shardings["opt"]["count"])
-    return {"params": model, "opt": opt, "step": place(state["step"], shardings["step"])}
+    opt["count"] = placer(state["opt"]["count"], shardings["opt"]["count"])
+    return {"params": model, "opt": opt, "step": placer(state["step"], shardings["step"])}

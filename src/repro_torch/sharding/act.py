@@ -27,10 +27,11 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication, local_map
 
 from .rules import axes, placements, resolve
@@ -130,3 +131,138 @@ def on_shards(fn: Callable, args: Sequence, in_placements: Sequence, out_placeme
         for pl in in_placements)
     return local_map(fn, out_placements=tuple(out_placements), in_placements=tuple(in_placements),
                      in_grad_placements=grads, redistribute_inputs=True)(*args)
+
+
+# ---------------------------------------------------------------------------
+# head layouts: DTensor cannot view a dim it shards unevenly, where XLA's
+# partitioner reshards such a reshape by itself
+# ---------------------------------------------------------------------------
+def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...],
+              logical: Tuple[Optional[str], ...]) -> torch.Tensor:
+    """``x`` with dim ``dim`` viewed as ``sizes``. Under a context ``x``
+    first takes the layout that ``logical`` resolves for the result, of the
+    split dims only the leading one sharded: DTensor cannot view a dim that
+    it shards over an axis the leading size does not divide (a projection's
+    1,024 columns that propagation sharded over 16, viewed as 8 KV heads;
+    256 MoE rows over 256 devices viewed as 128 tokens × 2). The gradient
+    is pinned to the result's layout (:func:`_pinned`)."""
+    shape = tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:])
+    ctx = _CTX.get()
+    if ctx is not None:
+        rules, mesh = ctx
+        n = len(sizes)
+
+        def on_x(p):  # the result's placement as one of x's
+            if not isinstance(p, Shard) or p.dim <= dim:
+                return p
+            return Replicate() if p.dim < dim + n else Shard(p.dim - n + 1)
+
+        spec = resolve(shape, logical, rules, axes(mesh))
+        x = replicated(x, mesh).redistribute(mesh, tuple(on_x(p) for p in placements(spec, mesh)))
+    return _pinned(x.reshape(shape))
+
+
+def shard_index(mesh, dims) -> int:
+    """This device's shard along a tensor dim sharded over the mesh dims
+    ``dims`` together, the major one first (mesh order)."""
+    index = 0
+    for i in dims:
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    return index
+
+
+def write_position(dst: torch.Tensor, index: int, src: torch.Tensor) -> None:
+    """``dst[:, index] = src`` in place (dst (B, S, ...), src (B, ...)). A
+    DTensor ``dst`` whose S is sharded is written on the device holding
+    position ``index`` only, at its local row: DTensor's own select along a
+    sharded dim writes every device's local row ``index``."""
+    seq_dims = [i for i, p in enumerate(dst.placements)
+                if isinstance(p, Shard) and p.dim == 1] if isinstance(dst, DTensor) else []
+    if not seq_dims:
+        dst[:, index] = src
+        return
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if not isinstance(p, Shard) or p.dim == 1 else Shard(p.dim - (p.dim > 1))
+               for p in dst.placements)
+    row = replicated(src, mesh).redistribute(mesh, pl).to_local()
+    local = dst.to_local()
+    start = shard_index(mesh, seq_dims) * local.shape[1]
+    if start <= index < start + local.shape[1]:
+        local[:, index - start] = row
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh) → (B, S, H·Dh); a DTensor's head-dim shard made whole
+    first (a flattened dim may be sharded only on its major part), then
+    :func:`flatten`."""
+    if isinstance(x, DTensor) and Shard(3) in x.placements:
+        x = x.redistribute(x.device_mesh, tuple(Replicate() if p == Shard(3) else p for p in x.placements))
+    return flatten(x, 2, 3)
+
+
+def flatten(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``x.flatten(start, end)``, the gradient pinned to the result's layout
+    (:func:`_pinned`): the backward views the gradient back, and a flat dim
+    that arrived sharded over more devices than its leading size has (a
+    (B·S) MoE token axis over every device, B over the data axes only)
+    cannot be viewed."""
+    return _pinned(x.flatten(start, end))
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient brought to x's layout in the backward:
+    the view that made x is undone there on whatever layout the gradient
+    arrives in, which DTensor may be unable to view (a flat dim sharded
+    over an axis the head count does not divide)."""
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: a local shard's gradient
+    goes back to DTensor, which takes its strides as the shard's layout and
+    may later view it as the global tensor's strides allow (an einsum's
+    backward hands back permuted strides)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def attention_on_shards(fn: Callable, q: DTensor, k, v) -> DTensor:
+    """Attention ``fn(q, k, v)`` (model layout (B, S, H, Dh); KV heads KH)
+    on each device's shards: the batch rows and the query heads as q has
+    them sharded, the sequence and the head dim whole (attention is local
+    to each (batch row, head)); the KV heads sharded with the query heads
+    where k has them so, otherwise whole on every device, each device
+    slicing out the KV heads its own query heads read (GQA: query head h
+    reads KV head h // (H / KH))."""
+    mesh = q.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    q_pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements)
+    k_in = k.placements if isinstance(k, DTensor) else whole
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    kv_heads_sharded = all(k_in[i] == Shard(2) for i in heads)
+    kv_pl = tuple(Shard(0) if p == Shard(0) else (Shard(2) if p == Shard(2) and kv_heads_sharded
+                                                  else Replicate()) for p in q_pl)
+    h, kh = q.shape[2], k.shape[2]
+    h_loc = h // math.prod(mesh.size(i) for i in heads)
+    kv_slice = None
+    if heads and not kv_heads_sharded:  # this device's query heads, and the KV heads they read
+        g = h // kh
+        if h_loc % g and g % h_loc:
+            raise ValueError(f"{h_loc} query heads a device do not group over {kh} KV heads")
+        start = shard_index(mesh, heads) * h_loc // g
+        kv_slice = slice(start, start + max(h_loc // g, 1))
+
+    def local(ql, kl, vl):
+        if torch.is_grad_enabled():
+            ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+        if kv_slice is not None:
+            kl, vl = kl[:, :, kv_slice], vl[:, :, kv_slice]
+        return fn(ql, kl, vl)
+
+    return on_shards(local, (q, k, v), (q_pl, kv_pl, kv_pl), [q_pl], work=q_pl)

@@ -71,6 +71,14 @@ def test_ragged_sequence_and_uneven_kv():
         np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+class _OnXpu(torch.Tensor):
+    """A tensor that reports a device with no flash path."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_contract_and_device_checks():
     q = torch.zeros(1, 96, 4, 32)
     k = torch.zeros(1, 96, 2, 32)
@@ -78,8 +86,12 @@ def test_contract_and_device_checks():
         flash_attention(q, k, k, True, 64, 64)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(torch.zeros(1, 64, 3, 32), k[:, :64], k[:, :64])
+    # meta tensors take the meta path (the dry run): the kernel's output, no values
+    out = flash_attention(q.to("meta"), k.to("meta"), k.to("meta"), True, 96, 96)
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="no path"):
-        flash_attention(q.to("meta"), k.to("meta"), k.to("meta"), True, 96, 96)
+        flash_attention(torch.Tensor._make_subclass(_OnXpu, q.to("meta")), k.to("meta"), k.to("meta"),
+                        True, 96, 96)
     # the kernel wrapper takes CUDA tensors only, and raises before any build
     with pytest.raises(ValueError, match="CUDA"):
         K.flash_attention_cuda(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),

@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "checkpoint/manager.py", "launch/train.py", "sharding/rules.py",
                    "sharding/specs.py", "roofline/analytic.py", "core/tpu_design.py",
                    "launch/autotune.py", "launch/mesh.py", "sharding/act.py",
-                   "models/moe_shard_map.py", "runtime/elastic.py"):
+                   "models/moe_shard_map.py", "runtime/elastic.py", "launch/dryrun.py",
+                   "roofline/hlo.py"):
         assert os.path.join(PORT, module) in files, module
     bad = [
         (os.path.relpath(p, ROOT), line, mod)
