@@ -267,7 +267,21 @@ Phases, each printing one JSON line:
                forward times with the lse)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
-object.
+object. The ``dryrun`` phase (before ``kernels``) holds the dry run to a
+real Qwen3-1.7B step on the (1, 1) mesh, runs three decode cells through
+the dry run's CLI, and runs the ten ``train_4k × 16x16`` cells cut to one
+layer cycle, one line each (``layout_cell``), against the reference's
+compiled dry run in ``tests/data/ref_dryrun_train_4k.json``
+(``launch.dryrun.layout_bars``: argument bytes equal, temp bytes, flops
+and collective bytes within their bars), the four large stacks also at
+two cycles (``depth_bars``: what a cycle adds, and the full depth within
+80 GB).
+
+    python3 chip_smoke.py --train-mesh-wall [--src OTHER_CHECKOUT]
+
+runs only the train_mesh phase (this tree's model code, or another
+checkout's ``src/``), whose line holds the mesh step's wall: run it for two
+trees in one call to compare them on one card.
 
     python3 chip_smoke.py --kernel-times [--src OTHER_CHECKOUT] [--outputs FILE]
 
@@ -3010,6 +3024,87 @@ DRYRUN_CELLS = (("mamba2-370m", "decode_32k", False), ("qwen2-vl-2b", "decode_32
                 ("qwen3-1.7b", "decode_32k", False))  # the reference test's two cells, and Qwen3-1.7B
 
 
+LAYOUT_WORKERS = 6  # dry-run processes at a time (host only: the machine's cores)
+
+
+def layout_archs() -> tuple:
+    """The archs of the reference's one-cycle fixture (a JSON file)."""
+    with open(os.path.join(HERE, "tests", "data", "ref_dryrun_train_4k.json")) as f:
+        return tuple(json.load(f)["one_cycle"])
+
+
+def layout_cells(archs=None, device_type: str = "cuda") -> list:
+    """(c) of the ``dryrun`` phase: each arch's (default
+    :func:`layout_archs`) ``train_4k × 16x16`` step cut to one layer cycle
+    at full width, through ``python -m repro_torch.launch.dryrun --cycles 1``
+    (:data:`LAYOUT_WORKERS` processes at a time), held by
+    ``launch.dryrun.layout_bars`` to the reference's compiled dry run
+    (``tests/data/ref_dryrun_train_4k.json``, a JSON file: nothing of JAX is
+    imported) and to the port's numbers before and after its layout
+    followed the reference's (``tests/data/port_dryrun_{before,after}.json``);
+    the archs of ``launch.dryrun.DEPTH_ARCHS`` also at two cycles, held by
+    ``depth_bars``. Prints one line a cell and returns the cells' summaries
+    (``ok``: every bar met)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as D
+
+    archs = layout_archs() if archs is None else archs
+    data = os.path.join(HERE, "tests", "data")
+    with open(os.path.join(data, "ref_dryrun_train_4k.json")) as f:
+        ref = json.load(f)["one_cycle"]
+    with open(os.path.join(data, "port_dryrun_before.json")) as f:
+        before = json.load(f)["train_4k"]
+    with open(os.path.join(data, "port_dryrun_after.json")) as f:
+        after = json.load(f)["train_4k"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    tmp = tempfile.mkdtemp(prefix="layout_cells_")
+
+    def run(task):
+        arch, cycles = task
+        t = time.perf_counter()
+        out_dir = os.path.join(tmp, f"{arch}_{cycles}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
+               "--cycles", str(cycles), "--out", out_dir, "--device", device_type]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+        recs = [json.load(open(os.path.join(out_dir, f))) for f in os.listdir(out_dir)] \
+            if os.path.isdir(out_dir) else []
+        rec = recs[0] if recs else {"ok": False, "error": proc.stderr[-2000:]}
+        rec.update(rc=proc.returncode, seconds=time.perf_counter() - t)
+        return task, rec
+
+    # the two-cycle cells, the longest, first
+    tasks = [(a, 2) for a in archs if a in D.DEPTH_ARCHS] + [(a, 1) for a in archs]
+    try:
+        with ThreadPoolExecutor(LAYOUT_WORKERS) as pool:
+            recs = dict(pool.map(run, tasks))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = []
+    for arch in archs:
+        one, two = recs[(arch, 1)], recs.get((arch, 2))
+        cell = {"arch": arch, "rc": one["rc"], "seconds": one["seconds"], "ok": False}
+        bad = [r for r in (one, two) if r is not None and not r["ok"]]
+        if bad:
+            cell["error"] = bad[0].get("error")
+            cell["traceback"] = bad[0].get("traceback", "")[-4000:]
+        else:
+            bars = D.layout_bars(one, ref[arch], before[arch], after[arch], D.cut(get_config(arch), 1),
+                                 SHAPES["train_4k"], {"data": 16, "model": 16})
+            if two is not None:
+                bars.update(D.depth_bars(one, two, get_config(arch)))
+                cell["seconds_two_cycles"] = two["seconds"]
+            cell.update(bars=bars, trace_s=one["trace_s"], ok=all(b["ok"] for b in bars.values()),
+                        collectives_by_op=dict(list(one["collectives_by_op"].items())[:3]))
+        print(json.dumps({"layout_cell": cell}), flush=True)
+        cells.append(cell)
+    return cells
+
+
 def dryrun_cell(spec: dict):
     """The cross-check's cell: (cfg, shape, DistConfig). Qwen3-1.7B at the
     train phase's shape with the flash kernel, remat full, one microbatch;
@@ -3044,7 +3139,7 @@ def dryrun_child(spec: dict) -> int:
     return 0
 
 
-def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, **overrides) -> dict:
+def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, layout=None, **overrides) -> dict:
     """Phase ``dryrun``: (a) the dry run of the cross-check cell
     (:func:`dryrun_cell`) against the same step run for real: on a (1, 1)
     NCCL mesh (gloo on the CPU), state and batch placed by
@@ -3057,7 +3152,10 @@ def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, **overrides) -> d
     temp bytes) against ``max_memory_allocated`` from a reset (less what
     the process held beside the arguments), within
     :data:`DRYRUN_PEAK_TOL`. (b) ``python -m repro_torch.launch.dryrun``
-    in a subprocess for each of ``cells``: each must be ``ok``. ``device``
+    in a subprocess for each of ``cells``: each must be ``ok``. (c) the
+    one-cycle ``train_4k`` cells of ``layout`` (None: every arch of the
+    fixture) against the reference's compiled dry run, the large stacks at
+    two cycles too (:func:`layout_cells`): every bar met. ``device``
     and ``overrides`` of :data:`DRYRUN` exist to rehearse the phase on the
     CPU. Returns the flash launches of the real step."""
     import shutil
@@ -3149,9 +3247,13 @@ def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, **overrides) -> d
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- (c) the layout against the reference's compiled step ------------------
+    lay = layout_cells(layout)  # a "cuda"-typed mesh of meta tensors: no card needed
+
     summary = dict(crosscheck=cross, cells=[{k: r.get(k) for k in ("arch", "shape", "mesh", "ok", "rc",
                                                                    "seconds", "trace_s", "error")}
                                             for r in prod],
+                   layout=[{k: c.get(k) for k in ("arch", "ok", "seconds", "error")} for c in lay],
                    card=card, seconds=time.perf_counter() - t_phase)
     why = []
     if real["collective_counts"] != dry["collective_counts"] or real["collectives"] != dry["collectives"]:
@@ -3165,6 +3267,10 @@ def dryrun_phase(card: str, device="cuda", cells=DRYRUN_CELLS, **overrides) -> d
     bad = [f"{r['arch']} × {r['shape']}: {r.get('error', '')[:300]}" for r in prod if not r["ok"] or r["rc"]]
     if bad:
         why.append("cells not ok: " + "; ".join(bad))
+    off = [f"{c['arch']}: " + (c.get("error") or ", ".join(k for k, b in c["bars"].items() if not b["ok"]))[:300]
+           for c in lay if not c["ok"]]
+    if off:
+        why.append("layout off the reference's: " + "; ".join(off))
     if why:
         fail("dryrun", "; ".join(why), **summary)
     emit("dryrun", ok=True, **summary)
@@ -3294,10 +3400,13 @@ def main() -> int:
     ap.add_argument("--kernel-times", action="store_true",
                     help="only time the four kernels and print one JSON line")
     ap.add_argument("--src", default=None,
-                    help="with --kernel-times: the root of another checkout whose src/ to time")
+                    help="with --kernel-times or --train-mesh-wall: the root of another checkout whose src/ to run")
     ap.add_argument("--outputs", default=None,
                     help="with --kernel-times: save the phase-sim outputs to this file, or, where "
                          "it exists, count the outputs that differ from it bit for bit")
+    ap.add_argument("--train-mesh-wall", action="store_true",
+                    help="only run the train_mesh phase (with --src: another checkout's src/) and print "
+                         "its step wall as one JSON line")
     ap.add_argument("--dryrun-child", default=None, metavar="SPEC",
                     help="internal: the dryrun phase's dry run of the cell SPEC (JSON)")
     args = ap.parse_args()
@@ -3309,6 +3418,16 @@ def main() -> int:
     # cuBLAS's deterministic workspace, set before its first handle: the
     # train phase's recovered run is held to the uninterrupted one bit for bit
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if args.train_mesh_wall:
+        if args.src:
+            sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))
+        import repro_torch
+
+        card = smi_line()
+        launches = train_mesh_phase(card)
+        print(json.dumps({"train_mesh_wall": {"src": os.path.dirname(os.path.dirname(repro_torch.__file__)),
+                                              "launches": launches, "card": card}}), flush=True)
+        return 0
     if args.kernel_times:
         if args.src:
             sys.path.insert(0, os.path.join(os.path.abspath(args.src), "src"))

@@ -27,6 +27,7 @@ return a result that cuts the gradient. Mamba training runs
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Tuple
 
 import torch
@@ -49,7 +50,7 @@ def ssd(
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if isinstance(x, DTensor):
-        return _on_mesh(x, dt, a, b_mat, c_mat, chunk)
+        return on_mesh(partial(ssd, chunk=chunk), x, dt, a, b_mat, c_mat)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
         raise NotImplementedError(SSD_GRAD_TODO)
     s = x.shape[1]
@@ -68,13 +69,15 @@ def ssd(
     raise ValueError(f"ssd: no path for tensors on {x.device}")
 
 
-def _on_mesh(x: DTensor, dt, a, b_mat, c_mat, chunk: int):
-    """Batch rows and heads as sharded; sequence, P and N whole. Per mesh
-    dim: x's batch split splits dt, B, C, y and h alike; x's head split
-    splits dt and a alike (h on its dim 1) and leaves B and C whole."""
+def on_mesh(fn, x: DTensor, dt, a, b_mat, c_mat):
+    """An SSD ``fn(x, dt, a, b_mat, c_mat)`` (this wrapper, or the plain
+    ``ssd_reference``) on each device's shards: batch rows and heads as
+    sharded; sequence, P and N whole. Per mesh dim: x's batch split splits
+    dt, B, C, y and h alike; x's head split splits dt and a alike (h on its
+    dim 1) and leaves B and C whole."""
     whole = Replicate()
     rows = {Shard(0): (Shard(0), Shard(0), whole, Shard(0), Shard(0)),  # x, dt, a, B/C, h
             Shard(2): (Shard(2), Shard(2), Shard(0), whole, Shard(1))}
     x_pl, dt_pl, a_pl, bc_pl, h_pl = zip(*(rows.get(p, (whole,) * 5) for p in x.placements))
-    return on_shards(lambda *t: ssd(*t, chunk=chunk), (x, dt, a, b_mat, c_mat),
+    return on_shards(fn, (x, dt, a, b_mat, c_mat),
                      (x_pl, dt_pl, a_pl, bc_pl, bc_pl), [x_pl, h_pl], work=x_pl)

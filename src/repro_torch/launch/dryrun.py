@@ -26,7 +26,10 @@ The record keeps the reference's keys where the meaning holds:
   * ``cost``: ``flops`` and ``bytes accessed`` (``roofline.hlo``: op by op,
     unfused, so never compared with XLA's);
   * ``collectives``: ``roofline.hlo.collective_bytes``, the reference's
-    dict, and ``collectives_by_part`` (forward, backward, update);
+    dict, ``collectives_by_part`` (forward, backward, update) and
+    ``collectives_by_op``, every issuer, the most bytes first
+    (``roofline.hlo.collective_bytes_by_op``: the op and the port's
+    function that sent them; the CLI prints the top :data:`BY_OP_TOP`);
   * ``trace_s`` in place of ``lower_s`` and ``compile_s``: the seconds the
     step took on the host;
   * ``kernels``: the flash kernel's calls (``DistConfig(attn_impl=
@@ -40,6 +43,12 @@ machine with no card). Placements and collectives do not depend on it.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k --cycles 1
+
+:func:`layout_bars` holds a one-cycle train cell (``--cycles 1``) to the
+reference's compiled dry run of the same cell (``tests/gen_ref_dryrun.py``
+writes it): the bars that ``tests/test_torch_layout*.py`` and
+``chip_smoke.py``'s ``dryrun`` phase apply.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from ..optim.adamw import AdamWConfig
 from ..roofline.hlo import (
     StepCounter,
     collective_bytes,
+    collective_bytes_by_op,
     collective_bytes_per_computation,
     collective_counts,
 )
@@ -75,6 +85,7 @@ from ..train.step import init_train_state, make_decode_step, make_prefill_step, 
 from .mesh import make_production_mesh
 
 MESHES = {False: "16x16", True: "2x16x16"}
+BY_OP_TOP = 10  # issuers printed of a record's collectives_by_op
 WORLDS = {False: 256, True: 512}
 
 
@@ -258,6 +269,7 @@ def run_step(fn, args, kind: str, mesh, rules) -> Dict[str, Any]:
     """One step under ``activation_rules`` and a :class:`StepCounter`
     (autograd on for a train step, off for serving): the record's
     ``memory``, ``cost``, ``collectives``, ``collectives_by_part``,
+    ``collectives_by_op``,
     ``trace_s`` and ``kernels``."""
     counter = StepCounter()
     counter.hold(_flat(args))
@@ -279,6 +291,7 @@ def run_step(fn, args, kind: str, mesh, rules) -> Dict[str, Any]:
         "collectives": collective_bytes(counter),
         "collective_counts": collective_counts(counter),
         "collectives_by_part": collective_bytes_per_computation(counter),
+        "collectives_by_op": collective_bytes_by_op(counter),
         "trace_s": trace_s,
         "kernels": {"flash": counter.flash_calls},
     }
@@ -310,11 +323,88 @@ def run_cell(
             print(f"  memory: {rec['memory']}")
             print(f"  cost: {rec['cost']}")
             print(f"  collectives: {rec['collectives']}")
+            for issuer, row in list(rec["collectives_by_op"].items())[:BY_OP_TOP]:
+                print(f"    {row['bytes']:>16,d} B in {row['count']:>6d} ops  {issuer}")
         rec["ok"] = True
     except Exception as e:  # a failing cell is a result, recorded with its traceback
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the layout bars: a one-cycle train cell against the reference's compiled step
+# ---------------------------------------------------------------------------
+TEMP_X = 2.0  # temp bytes a device ≤ 2 × the reference's compiled temp
+FLOPS_X = 2.0  # flops a device ≤ 2 × roofline.analytic.step_costs'
+ICI_X = 10.0  # collective bytes ≤ max(10 × step_costs' ICI bytes, a quarter of the before)
+BEFORE_SHARE = 0.25
+AFTER_X = 1.5  # collective bytes ≤ 1.5 × those of the layout that met these bars first
+GROWTH_X = 1.5  # temp bytes a cycle adds ≤ 1.5 × the argument bytes it adds
+CARD_BYTES = 80e9  # an H100's memory: a device's arguments + temps at full depth
+# the stacks depth_bars holds: a cycle's parameters and moments outweigh the
+# activations it saves for its recompute (in the small stacks they do not:
+# qwen2-vl-2b's second cycle adds 14.9 MB of temps to 2.8 MB of arguments),
+# and each of them needed more than a card before its layout followed the
+# reference's
+DEPTH_ARCHS = ("mistral-large-123b", "jamba-v0.1-52b", "grok-1-314b", "qwen3-moe-235b-a22b")
+
+
+def cut(cfg: ModelConfig, cycles: int) -> ModelConfig:
+    """``cfg`` cut to ``cycles`` layer cycles (0: as it is)."""
+    return dataclasses.replace(cfg, n_layers=cycles * cfg.cycle_len) if cycles else cfg
+
+
+def layout_bars(rec: Dict[str, Any], ref: Dict[str, Any], before: Dict[str, Any], after: Dict[str, Any],
+                cfg: ModelConfig, shape: ShapeConfig, mesh: Dict[str, int]) -> Dict[str, Dict[str, Any]]:
+    """The port's record ``rec`` of a train cell held to the reference's
+    compiled record ``ref`` of the same cell (``tests/data/
+    ref_dryrun_train_4k.json``), to ``before``, the port's own numbers
+    before the layout followed the reference's, and to ``after``, those of
+    the layout that first met these bars (``tests/data/port_dryrun_*.json``:
+    ``temp_bytes``, ``flops``, ``collective_bytes``): argument bytes equal
+    the reference's; temp bytes at most :data:`TEMP_X` × the reference's and
+    no more than before; flops at most :data:`FLOPS_X` × the analytic step
+    model's and no more than before; collective bytes at most
+    max(:data:`ICI_X` × the model's ICI bytes, :data:`BEFORE_SHARE` ×
+    before), no more than before and at most :data:`AFTER_X` × after.
+    ``mesh``: {"data": n, "model": m}. Each entry: ``value``, ``bar``,
+    ``ok``."""
+    from ..roofline.analytic import MeshShape, step_costs
+
+    ops = step_costs(cfg, shape, MeshShape(mesh["data"], mesh["model"]))
+    flops, ici = sum(o.flops for o in ops), sum(o.ici_bytes for o in ops)
+    got = {"argument_bytes": rec["memory"]["argument_bytes"], "temp_bytes": rec["memory"]["temp_bytes"],
+           "flops": rec["cost"]["flops"], "collective_bytes": rec["collectives"]["total"]}
+    bars = {"temp_bytes": min(TEMP_X * ref["memory"]["temp_bytes"], before["temp_bytes"]),
+            "flops": min(FLOPS_X * flops, before["flops"]),
+            "collective_bytes": min(max(ICI_X * ici, BEFORE_SHARE * before["collective_bytes"]),
+                                    before["collective_bytes"], AFTER_X * after["collective_bytes"])}
+    out = {"argument_bytes": {"value": got["argument_bytes"], "bar": ref["memory"]["argument_bytes"],
+                              "ok": got["argument_bytes"] == ref["memory"]["argument_bytes"]}}
+    for key, bar in bars.items():
+        out[key] = {"value": got[key], "bar": bar, "ok": got[key] <= bar}
+    return out
+
+
+def depth_bars(one: Dict[str, Any], two: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Dict[str, Any]]:
+    """What a layer cycle adds, from the records of a train cell cut to one
+    and to two cycles (``cfg``: the full-depth config): ``temp_growth``,
+    the temp bytes the second cycle adds, at most :data:`GROWTH_X` × the
+    argument bytes it adds (its parameters and moments, 12 bytes a local
+    parameter: a cycle's gradients and update temporaries are of that
+    size, while a weight gathered over a 16-way data axis and kept to the
+    next cycle is 16 × its shard, 32 bytes a local parameter even in bf16);
+    ``full_depth``, the arguments and temps of the full stack extrapolated
+    by that growth, at most :data:`CARD_BYTES`. Each entry: ``value``,
+    ``bar``, ``ok``."""
+    arg1, arg2 = one["memory"]["argument_bytes"], two["memory"]["argument_bytes"]
+    temp1, temp2 = one["memory"]["temp_bytes"], two["memory"]["temp_bytes"]
+    more = cfg.n_layers // cfg.cycle_len - 1
+    full = arg1 + temp1 + more * (arg2 - arg1 + temp2 - temp1)
+    return {"temp_growth": {"value": temp2 - temp1, "bar": GROWTH_X * (arg2 - arg1),
+                            "ok": temp2 - temp1 <= GROWTH_X * (arg2 - arg1)},
+            "full_depth": {"value": full, "bar": CARD_BYTES, "ok": full <= CARD_BYTES}}
 
 
 def iter_cells(multi_pod: bool):
@@ -339,6 +429,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--microbatches", type=int, default=0, help="0 = per-arch default")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the mesh's device type (the tensors are meta either way)")
+    ap.add_argument("--cycles", type=int, default=0,
+                    help="cut each model to this many layer cycles at full width (0: full depth)")
     args = ap.parse_args(argv)
 
     dist = None
@@ -365,7 +457,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     with fake_world(WORLDS[args.multi_pod]):
         for arch, shape_name, mp in cells:
             print(f"[dryrun] {arch} × {shape_name} × {MESHES[mp]}", flush=True)
-            rec = run_cell(arch, shape_name, mp, dist, device_type=args.device)
+            rec = run_cell(cut(get_config(arch), args.cycles) if args.cycles else arch, shape_name, mp, dist,
+                           device_type=args.device)
             status = "OK" if rec["ok"] else f"FAIL: {rec.get('error')}"
             print(f"  -> {status}  (trace {rec.get('trace_s', 0):.1f}s)", flush=True)
             n_ok += rec["ok"]

@@ -21,7 +21,7 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..sharding.act import on_shards, shard_index
+from ..sharding.act import on_shards, shard_index, use_weight
 from .flash_ref import _fwd_impl
 
 NEG_INF = -1e30  # finite, as the reference's: exp(NEG_INF - m) underflows to 0
@@ -211,7 +211,7 @@ def _decode_on_shards(q, k_cache: DTensor, v_cache: DTensor, cur_index: int) -> 
 def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     """SwiGLU / GeGLU gated MLP, or plain GELU FFN: (B, S, D) → (B, S, D).
     The activation runs in f32 and is cast back to x's dtype."""
-    gate = _mm("bsd,df->bsf", x, params["wi_gate"])
+    gate = _mm("bsd,df->bsf", x, use_weight(params["wi_gate"]))
     if kind == "swiglu":
         act = F.silu(gate.to(_F32)).to(x.dtype)
     elif kind in ("geglu", "gelu"):
@@ -219,5 +219,5 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise KeyError(kind)
     if kind != "gelu":  # gated variants multiply by the up projection
-        act = act * _mm("bsd,df->bsf", x, params["wi_up"])
-    return _mm("bsf,fd->bsd", act, params["wo"])
+        act = act * _mm("bsd,df->bsf", x, use_weight(params["wi_up"]))
+    return _mm("bsf,fd->bsd", act, use_weight(params["wo"]))

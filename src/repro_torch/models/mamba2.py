@@ -17,9 +17,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd.ref import ssd_decode_step, ssd_reference
+from ..sharding.act import constrain, on_shards, use_weight
 from .layers import _mm, rms_norm
 
 _F32 = torch.float32
@@ -62,7 +64,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, width W: y_t = Σ_w x_{t-W+1+w} · w_w + b, as W
-    shifted adds in the input dtype. xbc: (B, S, C)."""
+    shifted adds in the input dtype. xbc: (B, S, C). A DTensor runs on
+    each device's shards (:func:`_conv_on_shards`)."""
+    if isinstance(xbc, DTensor):
+        return _conv_on_shards(xbc, w, b)
     width, s = w.shape[0], xbc.shape[1]
     out = torch.zeros_like(xbc)
     for i in range(width):
@@ -70,6 +75,21 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
         shifted = xbc if shift == 0 else F.pad(xbc, (0, 0, shift, 0))[:, :s]
         out = out + shifted * w[i]
     return out + b
+
+
+def _conv_on_shards(xbc: DTensor, w: torch.Tensor, b: torch.Tensor) -> DTensor:
+    """:func:`_causal_conv` on each device's shards: the sequence whole
+    (the conv runs along it), the batch as xbc has it, the channels split
+    where the weight splits them. DTensor's own ``pad`` along a whole dim
+    fails on torch 2.11 (an index error in its redistribution planner)."""
+    whole = [Replicate()] * xbc.device_mesh.ndim
+    x_pl, w_pl, b_pl = [], [], []
+    for px, pw in zip(xbc.placements, getattr(w, "placements", whole)):
+        split = pw == Shard(1)  # the weight's channels over this mesh dim
+        x_pl.append(Shard(2) if split else px if px == Shard(0) else Replicate())
+        w_pl.append(Shard(1) if split else Replicate())
+        b_pl.append(Shard(0) if split else Replicate())
+    return on_shards(_causal_conv, (xbc, w, b), (x_pl, w_pl, b_pl), [x_pl], work=x_pl)
 
 
 def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -84,7 +104,7 @@ def _gated_out(params: dict, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
     y = y + params["d_skip"][:, None] * xs  # the skip broadcasts over (H, P)
     y = y.reshape(y.shape[0], -1, cfg.ssm_d_inner)
     y = norm_fn(y * F.silu(z.to(_F32)).to(y.dtype), params["norm"], cfg.norm_eps)
-    return _mm("bse,ed->bsd", y, params["out_proj"])
+    return _mm("bse,ed->bsd", y, use_weight(params["out_proj"]))
 
 
 def mamba2_prefill(
@@ -106,7 +126,7 @@ def mamba2_prefill(
     the left, as the causal conv pads it."""
     d_in, nh, n, conv_dim = _dims(cfg)
     b, s, _ = x.shape
-    zxbcdt = _mm("bsd,de->bse", x, params["in_proj"])
+    zxbcdt = _mm("bsd,de->bse", x, use_weight(params["in_proj"]))
     z, xbc_raw, dt = _split(cfg, zxbcdt)
     xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]).to(_F32)).to(x.dtype)
     xs = xbc[..., :d_in].reshape(b, s, nh, cfg.ssm_head_dim)
@@ -114,10 +134,13 @@ def mamba2_prefill(
     c_mat = xbc[..., d_in + n:]
     dt = _softplus(dt.to(_F32) + params["dt_bias"])  # (B, S, nh)
     a = -torch.exp(params["a_log"])  # (nh,) < 0
+    # on a mesh the SSD's heads split over the model axis (the ssm_heads
+    # rule), so the model-axis devices share the scan
+    xs, dt = constrain(xs, ("batch", "seq", "ssm_heads", None)), constrain(dt, ("batch", "seq", "ssm_heads"))
     y, h_final = (ssd_fn or ssd_reference)(xs, dt, a, b_mat, c_mat)
     out = _gated_out(params, y, xs, z, cfg, norm_fn)
     w = cfg.ssm_conv_width
-    window = F.pad(xbc_raw, (0, 0, max(w - 1 - s, 0), 0))
+    window = xbc_raw if s >= w - 1 else F.pad(xbc_raw, (0, 0, w - 1 - s, 0))
     conv = window[:, window.shape[1] - (w - 1):].contiguous()  # a copy, not a view of zxbcdt
     return out, {"conv": conv, "ssm": h_final}
 
@@ -158,7 +181,7 @@ def mamba2_decode(
     compute), and the SSM state is overwritten."""
     d_in, nh, n, conv_dim = _dims(cfg)
     b = x.shape[0]
-    zxbcdt = _mm("bsd,de->bse", x, params["in_proj"])
+    zxbcdt = _mm("bsd,de->bse", x, use_weight(params["in_proj"]))
     z, xbc, dt = _split(cfg, zxbcdt)  # xbc: (B, 1, conv_dim)
 
     window = torch.cat([cache["conv"], xbc], 1)  # (B, W, conv_dim)

@@ -45,12 +45,13 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.rmsnorm.ops import rmsnorm
+from ..kernels.ssd.ops import on_mesh as ssd_on_mesh
 from ..kernels.ssd.ops import ssd
 from ..kernels.ssd.ref import ssd_reference
 from ..sharding.act import (
@@ -58,8 +59,11 @@ from ..sharding.act import (
     constrain,
     current_context,
     in_context,
+    local_product,
     merge_heads,
     unflatten,
+    use_weight,
+    weights_as_placed,
     write_position,
 )
 from ..sharding.rules import axes
@@ -123,10 +127,18 @@ def _shard_map_moe(flags: RunFlags, cfg: ModelConfig) -> bool:
 
 
 def _ssd_fn(flags: RunFlags, s: int) -> Callable:
-    impl = {"reference": ssd_reference, "kernel": ssd}.get(flags.ssd_impl)
+    impl = {"reference": _ssd_reference, "kernel": ssd}.get(flags.ssd_impl)
     if impl is None:
         raise ValueError(f"unknown ssd_impl {flags.ssd_impl!r}")
     return partial(impl, chunk=min(flags.ssd_chunk, s))
+
+
+def _ssd_reference(x, dt, a, b_mat, c_mat, chunk: int):
+    """The plain SSD; on a mesh on each device's shards, as the kernel's
+    wrapper runs (DTensor cannot flatten its chunked einsums' dims that two
+    mesh dims shard, on the card's torch)."""
+    fn = partial(ssd_reference, chunk=chunk)
+    return ssd_on_mesh(fn, x, dt, a, b_mat, c_mat) if isinstance(x, DTensor) else fn(x, dt, a, b_mat, c_mat)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -299,9 +311,18 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, norm: Callable, sequence: b
     head layout, as the reference's sequence mode does (decode does not)."""
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kv = ("batch", "seq", "act_kv_heads", "act_kv_dim")
-    q = unflatten(_mm("bsd,de->bse", x, p["wq"]), 2, (h, dh), ("batch", "seq", "act_heads", None))
-    k = unflatten(_mm("bsd,de->bse", x, p["wk"]), 2, (kh, dh), kv)
-    v = unflatten(_mm("bsd,de->bse", x, p["wv"]), 2, (kh, dh), kv)
+    wk, wv = use_weight(p["wk"]), use_weight(p["wv"])
+    project_kv = partial(_mm, "bsd,de->bse", x)
+    if sequence and isinstance(wk, DTensor) and all(pl == Replicate() for pl in wk.placements):
+        # KV weights whole on every device (a KV head count the model axis
+        # does not divide): each model-axis device projects its share of
+        # the sequence and the small K/V are gathered, rather than every
+        # device projecting all of it (on the shards: act.local_product)
+        x_kv = constrain(x, ("batch", "seq_res", "act_embed"))
+        project_kv = partial(local_product, x_kv, fn=partial(_mm, "bsd,de->bse"))
+    q = unflatten(_mm("bsd,de->bse", x, use_weight(p["wq"])), 2, (h, dh), ("batch", "seq", "act_heads", None))
+    k = unflatten(project_kv(wk), 2, (kh, dh), kv)
+    v = unflatten(project_kv(wv), 2, (kh, dh), kv)
     if sequence:
         q = constrain(q, ("batch", "seq", "act_heads", None))
         k = constrain(k, ("batch", "seq", "act_kv_heads", "act_kv_dim"))
@@ -340,7 +361,7 @@ def _attn_seq(p, x, cfg: ModelConfig, flags: RunFlags, positions, mrope_position
         else:
             raise ValueError(f"unknown attn_impl {flags.attn_impl!r}")
         out = attention_on_shards(fn, q, k, v) if isinstance(q, DTensor) else fn(q, k, v)
-    y = _mm("bse,ed->bsd", merge_heads(out), p["wo"])
+    y = _mm("bse,ed->bsd", merge_heads(out), use_weight(p["wo"]))
     return y, ({"k": k, "v": v} if want_cache else None)
 
 
@@ -370,7 +391,7 @@ def _attn_decode(p, x, cfg: ModelConfig, cache: dict, cur_index: int, mrope_posi
         write_position(cache["v"], cur_index, v[:, 0].to(cache["v"].dtype))
         k_cache, v_cache = cache["k"], cache["v"]
     out = attention_decode(q, k_cache, v_cache, cur_index)
-    return _mm("bse,ed->bsd", merge_heads(out), p["wo"])
+    return _mm("bse,ed->bsd", merge_heads(out), use_weight(p["wo"]))
 
 
 def _mlp(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, norm: Callable, sequence: bool):
@@ -440,10 +461,18 @@ def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int,
 # ---------------------------------------------------------------------------
 # embeddings / head
 # ---------------------------------------------------------------------------
+HEAD_USE = ("embed", "act_vocab")  # the LM head matrix (D, V) at its product
+
+
 def _embed(p, cfg: ModelConfig, batch: Dict[str, torch.Tensor], compute_dtype) -> torch.Tensor:
     # an embedding lookup, the reference's gather: DTensor shards it (and
-    # its backward) where a sharded index into a table trips the card's torch
-    x = F.embedding(batch["tokens"], p["embed"]) if cfg.input_mode == "tokens" else batch["embeds"]
+    # its backward) where a sharded index into a table trips the card's
+    # torch. On a mesh the table is whole over the data axes, so the rows
+    # come out batch-sharded as the tokens are
+    if cfg.input_mode == "tokens":
+        x = F.embedding(batch["tokens"], use_weight(p["embed"], ("vocab_table", "embed")))
+    else:
+        x = batch["embeds"]
     x = x.to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype, device=x.device)
@@ -458,6 +487,7 @@ def _head(p, cfg: ModelConfig, x: torch.Tensor, norm: Callable = rms_norm) -> to
         w = p["lm_head"].to(x.dtype)
     # the reference's bf16 product with f32 accumulation and f32 logits: the
     # operands widen to f32 exactly, so only the summation order differs
+    w = use_weight(w, HEAD_USE)
     return constrain(torch.matmul(x.to(_F32), w.to(_F32)), ("batch", "seq", "act_vocab"))
 
 
@@ -574,10 +604,12 @@ def decode_step(
     (logits (B, 1, V) f32, cache); the cache is updated in place and the
     same list is returned. Of ``flags`` only ``norm_impl`` and ``moe_impl``
     apply: decode attention and the one-token SSD update are plain torch,
-    as in the reference."""
-    p = cast_params(params, compute_dtype)
-    x = _embed(p, cfg, batch, compute_dtype)
-    mrope_positions = batch.get("mrope_positions")
-    for i, lp in enumerate(p["layers"]):
-        x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions, flags)
-    return _head(p, cfg, x, norm_fn(flags)), cache
+    as in the reference. On a mesh the weights stay on their FSDP shards
+    (``sharding.act.weights_as_placed``)."""
+    with weights_as_placed():
+        p = cast_params(params, compute_dtype)
+        x = _embed(p, cfg, batch, compute_dtype)
+        mrope_positions = batch.get("mrope_positions")
+        for i, lp in enumerate(p["layers"]):
+            x = _block_decode(i % cfg.cycle_len, lp, x, cfg, cache[i], cur_index, mrope_positions, flags)
+        return _head(p, cfg, x, norm_fn(flags)), cache

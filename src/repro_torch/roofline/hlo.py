@@ -46,6 +46,14 @@ only:
     ctypes kernel is invisible to a dispatch mode, as a Pallas custom
     call's flops are to XLA's cost analysis.
 
+Each collective is also filed under its issuer (:func:`collective_bytes_by_op`):
+the op that sent it, which is the DTensor op being dispatched (the last
+one the mode saw), ``redistribute`` for an explicit redistribution,
+``redistribute.backward`` for its gradient's, or the functional collective
+itself where port code calls it; and where in the port it was sent from:
+the innermost two frames of ``repro_torch`` on the Python stack or, in a
+backward that runs no port code, the autograd node being run.
+
 Every op is filed under the part of the step it belongs to: the ops that
 run inside an autograd graph task (the backward, activation-checkpoint
 recomputes included) are a backward; the runs between are forwards, and
@@ -56,6 +64,8 @@ thread-local state and a context variable does not.
 """
 from __future__ import annotations
 
+import os
+import sys
 import threading
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -90,6 +100,8 @@ _KIND = {
     "batch_p2p_ops": "collective-permute",
 }
 _NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+_PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # src/repro_torch
+_REDISTRIBUTE = {"Redistribute.forward": "redistribute", "NestedRedistribute.forward": "redistribute.backward"}
 
 
 def collective_kind(func) -> Optional[str]:
@@ -135,9 +147,16 @@ class StepCounter(TorchDispatchMode):
         self.flash_calls = 0
         self._flash0 = 0
         self.ops: Dict[str, int] = {}
+        self.by_op: Dict[str, Dict[str, int]] = {}
+        self._last_op = "?"  # the DTensor op dispatched last: the issuer of its implicit collectives
 
     # ---- storages ------------------------------------------------------------
-    def _storage(self, t: torch.Tensor, count: bool) -> None:
+    def _storage(self, t: torch.Tensor, count: bool, own: bool = False) -> None:
+        """Register ``t``'s storage as live (its bytes counted where
+        ``count``; ``own``: only ``t``'s own bytes, for a collective's result,
+        whose meta kernel may return a view into a buffer of the whole group's
+        size, as ``_dtensor::shard_dim_alltoall``'s does, where the card's
+        returns a tensor of the result's size)."""
         if is_traceable_wrapper_subclass(t):
             return
         st = t.untyped_storage()
@@ -146,7 +165,7 @@ class StepCounter(TorchDispatchMode):
             if key in self._live_keys:
                 return
             self._live_keys.add(key)
-            n = st.nbytes() if count else 0
+            n = (min(_nbytes(t), st.nbytes()) if own else st.nbytes()) if count else 0
             self.live_bytes += n
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
         weakref.finalize(st, self._free, key, n)
@@ -181,6 +200,7 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
+            self._last_op = str(func)
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -190,11 +210,17 @@ class StepCounter(TorchDispatchMode):
         kind = collective_kind(func)
         if kind is not None:
             moved = _tensors(args) if kind == "collective-permute" else _tensors(out)
-            sums[kind] += sum(_nbytes(t) for t in moved)
+            nbytes = sum(_nbytes(t) for t in moved)
+            sums[kind] += nbytes
             sums[f"n:{kind}"] += 1
             sums["count"] += 1
+            issuer = self._issuer(func)
             with self._lock:
                 self.ops[func.name()] = self.ops.get(func.name(), 0) + 1
+                row = self.by_op.setdefault(issuer, _by_op_row())
+                row[kind] += nbytes
+                row["bytes"] += nbytes
+                row["count"] += 1
         fl = flop_registry.get(func._overloadpacket)
         if fl is not None:
             sums["flops"] += int(fl(*args, **kwargs, out_val=out))
@@ -202,8 +228,37 @@ class StepCounter(TorchDispatchMode):
         if not func.is_view:
             sums["bytes_accessed"] += sum(_nbytes(t) for t in _tensors((args, kwargs)) + outs)
         for t in outs:
-            self._storage(t, count=True)
+            self._storage(t, count=True, own=kind is not None)
         return out
+
+    def _issuer(self, func) -> str:
+        """``"<op> @ <where>"`` for a collective being dispatched now (module
+        docstring). An explicit redistribution's forward leaves its ``where``
+        on its autograd node, for the collective of its backward."""
+        op, where, node_ctx = None, [], None
+        frame = sys._getframe(2)
+        while frame is not None and len(where) < 2:
+            code, module = frame.f_code, frame.f_globals.get("__name__", "")
+            if module == "torch.autograd.graph" and code.co_name == "_engine_run_backward":
+                break  # outside the backward: the caller of autograd, not the issuer
+            if op is None and module == "torch.distributed.tensor._redistribute":
+                op = _REDISTRIBUTE.get(code.co_qualname)
+                node_ctx = frame.f_locals.get("ctx") if op == "redistribute" else None
+            elif op is None and module == "torch.distributed.tensor._dispatch":
+                op = self._last_op
+            if code.co_filename.startswith(_PORT) and not code.co_filename.endswith("hlo.py"):
+                where.append(f"{os.path.relpath(code.co_filename, _PORT)}:{code.co_name}")
+            frame = frame.f_back
+        if op is None:  # a functional collective called directly
+            op = func.name()
+        where_s = " < ".join(where)
+        if where and node_ctx is not None and hasattr(node_ctx, "metadata"):
+            node_ctx.metadata["issuer_where"] = where_s
+        if not where:
+            node = torch._C._current_autograd_node()
+            where_s = "?" if node is None else node.metadata.get(
+                "issuer_where", f"backward {node.name()}")
+        return f"{op} @ {where_s}"
 
     # ---- reading -------------------------------------------------------------
     def parts(self) -> Dict[str, Dict[str, int]]:
@@ -232,6 +287,22 @@ class StepCounter(TorchDispatchMode):
             for k, v in sums.items():
                 out[k] += v
         return out
+
+
+def _by_op_row() -> Dict[str, int]:
+    out = {c: 0 for c in COLLECTIVES}
+    out.update(bytes=0, count=0)
+    return out
+
+
+def collective_bytes_by_op(counter: StepCounter) -> Dict[str, Dict[str, int]]:
+    """Each issuer's collectives (:meth:`StepCounter._issuer`): its bytes by
+    category, ``bytes`` in all and ``count`` (ops), the most bytes first.
+    Over every issuer the bytes sum to :func:`collective_bytes`'s, category
+    by category."""
+    with counter._lock:
+        rows = sorted(counter.by_op.items(), key=lambda kv: -kv[1]["bytes"])
+    return {k: dict(v) for k, v in rows}
 
 
 def _collectives(sums: Dict[str, int]) -> Dict[str, int]:

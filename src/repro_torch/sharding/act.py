@@ -22,6 +22,14 @@ conflicts — e.g. the tied-embedding LM head (contracting dim FSDP-sharded on
 the weight, batch dim data-sharded on the activation) would replicate the
 *batch* of the f32 logits. Constraining activations at block boundaries
 keeps batch on the data axes everywhere.
+
+XLA propagates a constraint back into the op that produced the tensor;
+DTensor does not, so a constraint after a product only slices a result
+that was already gathered. The weights are therefore placed before their
+products (:func:`use_weight`): whole over the data axes at their use, as
+the reference's partitioner gathers an FSDP weight inside the remat'd
+layer, with the gradient reduce-scattered back to its shard at the same
+use.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from torch.distributed.tensor.experimental import implicit_replication, local_ma
 from .rules import axes, placements, resolve
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("act_rules", default=None)
+_AS_PLACED: contextvars.ContextVar = contextvars.ContextVar("weights_as_placed", default=False)
 
 
 @contextlib.contextmanager
@@ -99,6 +108,63 @@ def gathered(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
+DATA_AXES = ("pod", "data")  # the mesh axes that weights shard FSDP-style
+
+
+def use_weight(w: torch.Tensor, logical: Optional[Tuple[Optional[str], ...]] = None) -> torch.Tensor:
+    """A weight placed for its product, the reference partitioner's FSDP
+    layout: under a context, ``w`` whole over the data axes (the all-gather
+    of one weight) and, over the model axis, as its own placement has it or,
+    where ``logical`` names the axes of its use, as those resolve (the LM
+    head: vocab over ``act_vocab``). The model axis moves first, so a dim it
+    comes to shard is never gathered whole. Its gradient goes back through
+    the same two redistributions reversed: the product's ``Partial`` sum
+    over the data axes becomes the FSDP shard there (a reduce-scatter), at
+    this use, so no unreduced gradient outlives the layer. Call it inside
+    the remat unit: the recompute gathers again and nothing gathered is
+    saved across units. With no context, on a plain tensor, or inside
+    :func:`weights_as_placed`, ``w`` as it is."""
+    ctx = _CTX.get()
+    if ctx is None or not isinstance(w, DTensor) or _AS_PLACED.get():
+        return w
+    rules, mesh = ctx
+    names = tuple(w.device_mesh.mesh_dim_names)
+    if logical is None:
+        model = tuple(w.placements)
+    else:
+        no_data = {k: _drop_data(v) for k, v in rules.items()}
+        model = placements(resolve(tuple(w.shape), logical, no_data, axes(mesh)), mesh)
+    on_model = tuple(p if n in DATA_AXES else m for n, p, m in zip(names, w.placements, model))
+    whole_data = tuple(Replicate() if n in DATA_AXES else p for n, p in zip(names, on_model))
+    if on_model != tuple(w.placements):
+        w = w.redistribute(w.device_mesh, on_model)
+    return w.redistribute(w.device_mesh, whole_data) if whole_data != on_model else w
+
+
+@contextlib.contextmanager
+def weights_as_placed() -> Iterator[None]:
+    """:func:`use_weight` leaves every weight where its rule places it for
+    the extent of the block: the serving steps (prefill and decode). The
+    FSDP gather pairs with its gradient's reduce-scatter in a train step;
+    with no gradient, a product on the FSDP shards that moves activations
+    (a token's, at decode) or gathers what DTensor picks moves no more
+    than the weights would (the dry run's prefill and decode cells,
+    ``tests/test_torch_layout.py``, ``tests/test_torch_layout_prefill.py``)."""
+    token = _AS_PLACED.set(True)
+    try:
+        yield
+    finally:
+        _AS_PLACED.reset(token)
+
+
+def _drop_data(rule):
+    """A rule's mesh axes without the data axes (None where none is left)."""
+    if rule is None:
+        return None
+    kept = tuple(a for a in ((rule,) if isinstance(rule, str) else rule) if a not in DATA_AXES)
+    return kept or None
+
+
 def constrain(x: torch.Tensor, logical: Tuple[Optional[str], ...]) -> torch.Tensor:
     ctx = _CTX.get()
     if ctx is None:
@@ -112,6 +178,18 @@ def current_context():
     """(rules, mesh) if a distribution context is installed, else None —
     lets layers pick shard_map implementations only when actually sharded."""
     return _CTX.get()
+
+
+def local_product(x: DTensor, w: DTensor, fn: Callable = torch.matmul) -> DTensor:
+    """``fn(x, w)``, a product ``x @ w`` (x (..., D), w (D, E)), on each
+    device's shards, where x and w are placed for a product with no
+    collective: D whole on both, x's other dims and w's E sharded over
+    different mesh dims. The result is placed as x, with E sharded where w
+    shards it. DTensor's own matmul flattens x's leading dims, which it
+    cannot do on the card's torch where two mesh dims shard them (a
+    sequence-split head or K/V projection)."""
+    out = tuple(Shard(x.ndim - 1) if pw == Shard(1) else px for px, pw in zip(x.placements, w.placements))
+    return on_shards(fn, (x, w), (x.placements, w.placements), [out], work=out)
 
 
 def on_shards(fn: Callable, args: Sequence, in_placements: Sequence, out_placements: Sequence,

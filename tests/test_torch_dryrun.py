@@ -23,7 +23,9 @@
   (``moe_impl="shard_map"``) on a 2×2 mesh, dry-run here under the fake
   group on meta tensors and run for real on four gloo processes: rank 0's
   collectives equal by category in count and bytes, the argument bytes
-  equal the real state's local bytes, and so do the flash calls;
+  equal the real state's local bytes, and so do the flash calls; each
+  run's ``collectives_by_op`` sums to its category totals exactly, and
+  the two runs name the same issuers with the same bytes;
 - the repaired paths compute the unsharded values: on a real 1×4 gloo
   mesh, f32 forward logits (blockwise and full attention; 4 and 6 query
   heads over 2 KV heads), decode logits against a head-dim-sharded and a
@@ -57,6 +59,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.flash_ref import _fwd_impl  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.moe import moe_apply  # noqa: E402
+from repro_torch.roofline.hlo import COLLECTIVES  # noqa: E402
 from repro_torch.runtime.elastic import place  # noqa: E402
 from repro_torch.sharding.act import activation_rules  # noqa: E402
 from repro_torch.sharding.rules import DistConfig, Sharding, default_rules, resolve, tree_sharded_structs  # noqa: E402
@@ -281,8 +284,8 @@ def cell(name):
 
 def summary(rec):
     return {"collectives": rec["collectives"], "collective_counts": rec["collective_counts"],
-            "by_part": rec["collectives_by_part"], "argument_bytes": rec["memory"]["argument_bytes"],
-            "flash": rec["kernels"]["flash"]}
+            "by_part": rec["collectives_by_part"], "by_op": rec["collectives_by_op"],
+            "argument_bytes": rec["memory"]["argument_bytes"], "flash": rec["kernels"]["flash"]}
 
 
 def rel_to_max(got, want) -> float:
@@ -417,6 +420,27 @@ def test_dry_run_collectives_equal_a_real_run(gloo_report, name):
         assert real["collective_counts"]["all-to-all"] >= 4  # dispatch and return, forward and backward
 
 
+@pytest.mark.parametrize("name", list(CELLS))
+def test_collectives_by_op_sum_to_the_category_totals(gloo_report, name):
+    """``collectives_by_op`` files every collective under its issuer: over
+    the issuers, each category's bytes and the op count sum to the step's
+    totals exactly, in the dry run and in the real run alike, and both runs
+    name the same issuers with the same bytes."""
+    cfg, dist = cell(name)
+    with D.fake_world(4):
+        mesh = make_host_mesh(2, "cpu")
+        fn, args, mesh, kind, dist = D.build_cell(cfg, TRAIN, False, dist, mesh=mesh)
+        dry = summary(D.run_step(fn, args, kind, mesh, dist.rules))
+    for rec in (dry, gloo_report[name]):
+        rows = rec["by_op"].values()
+        for cat in COLLECTIVES:
+            assert sum(r[cat] for r in rows) == rec["collectives"][cat], cat
+        assert sum(r["count"] for r in rows) == rec["collectives"]["count"]
+        assert sum(r["bytes"] for r in rows) == rec["collectives"]["total"]
+        assert all(" @ " in issuer and "?" not in issuer for issuer in rec["by_op"])
+    assert dry["by_op"] == gloo_report[name]["by_op"]
+
+
 def test_repaired_paths_compute_the_unsharded_values(gloo_report):
     errs = gloo_report["values_1x4"]
     assert len(errs) == 2 * (2 + 2 + 2) + 1, errs
@@ -428,7 +452,10 @@ def test_chip_smoke_dryrun_phase_rehearses_on_the_cpu(capsys):
     mesh (the flash kernel's plain version, so no launches): the dry run in
     its child process agrees with the real step in collectives, flash calls
     (two a layer: forward and recompute) and argument bytes, the one
-    production cell given is ok, and the process group is gone after."""
+    production cell given is ok, the two layout cells given (musicgen-large
+    cut to one cycle; mistral-large-123b at one and two cycles) meet the
+    reference's bars and the depth bars, and the process group is gone
+    after."""
     import sys
 
     import torch.distributed as dist
@@ -437,12 +464,18 @@ def test_chip_smoke_dryrun_phase_rehearses_on_the_cpu(capsys):
     import chip_smoke
 
     out = chip_smoke.dryrun_phase("cpu", device="cpu", cells=(("mamba2-370m", "decode_32k", False),),
-                                  reduced=True, layers=2, seq=32, batch=4)
+                                  layout=("musicgen-large", "mistral-large-123b"), reduced=True, layers=2, seq=32,
+                                  batch=4)
     assert out == {"flash": 0} and not dist.is_initialized()
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out_lines = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out_lines[-1])
     assert line["phase"] == "dryrun" and line["ok"]
     cross = line["crosscheck"]
     assert cross["flash"]["dry_run"] == cross["flash"]["want"] == 4
     assert cross["argument_bytes"]["card"] == cross["argument_bytes"]["dry_run"]
     assert cross["collectives"]["card"] == cross["collectives"]["dry_run"]
     assert [c["ok"] for c in line["cells"]] == [True]
+    assert [(c["arch"], c["ok"]) for c in line["layout"]] == [("musicgen-large", True),
+                                                              ("mistral-large-123b", True)]
+    depth = [json.loads(ln)["layout_cell"] for ln in out_lines if '"layout_cell"' in ln][1]
+    assert depth["arch"] == "mistral-large-123b" and {"temp_growth", "full_depth"} <= set(depth["bars"])

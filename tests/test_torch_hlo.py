@@ -9,6 +9,7 @@
   all-to-all land in their categories, and ``wait_tensor`` and
   ``_wrap_tensor_autograd`` are not counted;
 - the categories and keys are the reference's (``repro.roofline.hlo``);
+- each collective is filed under its issuer (``collective_bytes_by_op``);
 - the step's parts: each microbatch's forward and backward and the update;
 - flops by ``torch.utils.flop_counter``'s formulas, on the local shards;
 - live bytes: a storage counts from its first op to its release, views
@@ -85,6 +86,25 @@ def test_a_mode_that_runs_dtensor_ops_itself_misses_the_implicit_gather(mesh, de
     with RunsItself() as m:
         x @ w
     assert m.seen and not [s for s in m.seen if "c10d" in s], m.seen
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_collectives_are_filed_under_their_issuer(mesh, device):
+    """``collective_bytes_by_op``: the gather inside the matmul's dispatch
+    under ``aten.mm.default``, an explicit redistribution under
+    ``redistribute``, a functional collective called directly under its own
+    name; the issuers' bytes sum to the totals (this file is no port code,
+    so no port function is named)."""
+    x, w = sharded(mesh, (64, 32), device), sharded(mesh, (32, 16), device)
+    with H.StepCounter() as c:
+        x @ w
+        x.redistribute(mesh, [Replicate()])
+        funcol.all_reduce(torch.ones(4, device=device), "sum", mesh)
+    by = H.collective_bytes_by_op(c)
+    assert {k.split(" @ ")[0]: v["bytes"] for k, v in by.items()} == {
+        "redistribute": 8192, "aten.mm.default": 2048, "_c10d_functional::all_reduce": 16}
+    assert list(by.values())[0]["bytes"] == 8192  # the most bytes first
+    assert sum(v["bytes"] for v in by.values()) == H.collective_bytes(c)["total"]
 
 
 @pytest.mark.parametrize("device", DEVICES)

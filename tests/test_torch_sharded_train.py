@@ -4,9 +4,13 @@ gloo processes, on the CPU, against the port's unsharded step:
 - one f32 train step (attention and every RMSNorm through the kernel
   wrappers, so their plain versions run on each device's shards under the
   wrappers' placements) on reduced qwen3-1.7b, qwen3-moe (``moe_impl``
-  dense and shard_map), grok-1 and jamba (``ssd_impl="reference"``, as
-  Mamba-2 trains), the state placed by ``runtime.elastic.state_shardings``
-  under ``default_rules`` and the step run under ``activation_rules``:
+  dense and shard_map), grok-1, grok-1 with 3 experts (E does not divide
+  the model axis, so the experts are whole on every device and the
+  combine runs at the outputs' owners, ``moe._combine_at_owners``, as
+  grok-1's 8 experts over 16 do; the test asserts it ran there and
+  nowhere else) and jamba (``ssd_impl="reference"``, as Mamba-2 trains),
+  the state placed by ``runtime.elastic.state_shardings`` under
+  ``default_rules`` and the step run under ``activation_rules``:
   the loss, the global gradient norm and every leaf's gradient (read from
   its first moment, max |Δ| / max |g|) within 1e-5 of the unsharded
   step's. One stated exception, ``tests/test_torch_train_moe.py``'s: the
@@ -58,6 +62,7 @@ from repro_torch.configs.registry import reduced_config  # noqa: E402
 from repro_torch.data.pipeline import for_model  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_host_mesh  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import RunFlags  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.runtime.elastic import reshard_state, shrink_mesh, state_shardings  # noqa: E402
@@ -69,13 +74,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL, A_LOG_TOL = 1e-5, 2e-4
 SEQ, BATCH = 16, 4
 KERNELS = dict(attn_impl="kernel", norm_impl="kernel")
-CASES = {  # name: (arch, flags, capacity factor override, aux weight)
-    "qwen3-1.7b": ("qwen3-1.7b", KERNELS, None, train_step.AUX_LOSS_WEIGHT),
-    "qwen3-moe-dense": ("qwen3-moe-235b-a22b", KERNELS, None, train_step.AUX_LOSS_WEIGHT),
-    "qwen3-moe-shard_map": ("qwen3-moe-235b-a22b", dict(KERNELS, moe_impl="shard_map"), 8.0, 0.0),
-    "grok-1": ("grok-1-314b", KERNELS, None, train_step.AUX_LOSS_WEIGHT),
-    "jamba": ("jamba-v0.1-52b", dict(KERNELS, ssd_impl="reference"), None, train_step.AUX_LOSS_WEIGHT),
+CASES = {  # name: (arch, flags, config overrides, aux weight)
+    "qwen3-1.7b": ("qwen3-1.7b", KERNELS, {}, train_step.AUX_LOSS_WEIGHT),
+    "qwen3-moe-dense": ("qwen3-moe-235b-a22b", KERNELS, {}, train_step.AUX_LOSS_WEIGHT),
+    "qwen3-moe-shard_map": ("qwen3-moe-235b-a22b", dict(KERNELS, moe_impl="shard_map"), {"capacity_factor": 8.0},
+                            0.0),
+    "grok-1": ("grok-1-314b", KERNELS, {}, train_step.AUX_LOSS_WEIGHT),
+    # E = 3 does not divide the model axis: experts whole on every device,
+    # and the combine at the outputs' owners (grok-1's 8 experts over 16)
+    "grok-1-e3": ("grok-1-314b", KERNELS, {"n_experts": 3}, train_step.AUX_LOSS_WEIGHT),
+    "jamba": ("jamba-v0.1-52b", dict(KERNELS, ssd_impl="reference"), {}, train_step.AUX_LOSS_WEIGHT),
 }
+AT_OWNERS = "grok-1-e3"  # the case whose MoE combine runs in moe._combine_at_owners
 
 
 def free_port() -> int:
@@ -102,10 +112,8 @@ def spawn(fn, args, nprocs: int, timeout: float):
 def one_step(case, mesh=None):
     """(state, metrics, cfg, shape, rules) of one f32 step of ``case`` from
     seed 0, sharded over ``mesh`` or on plain tensors."""
-    arch, flags, cf, aux_weight = CASES[case]
-    cfg = reduced_config(arch)
-    if cf is not None:
-        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    arch, flags, overrides, aux_weight = CASES[case]
+    cfg = dataclasses.replace(reduced_config(arch), **overrides)
     shape = ShapeConfig("train", SEQ, BATCH, "train")
     opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
     batch = for_model(cfg, seq_len=SEQ, global_batch=BATCH, seed=0).next_batch()
@@ -134,10 +142,18 @@ def _worker(rank, world, port, out_path, ckpt_dir):
                       WORLD_SIZE=str(world))
     torch.set_num_threads(1)
     init_process_group("cpu")
+    at_owners, combine = [], moe._combine_at_owners
+
+    def counted(*args, **kwargs):
+        at_owners.append(1)
+        return combine(*args, **kwargs)
+
+    moe._combine_at_owners = counted
     try:
         mesh = make_host_mesh(2, "cpu")
         report = {}
         for case in CASES:
+            at_owners.clear()
             state, m, cfg, shape, rules = one_step(case, mesh)
             plain, pm, *_ = one_step(case)
             leaves = {n: rel_to_max(state["opt"]["m"][n].full_tensor(), plain["opt"]["m"][n])
@@ -145,7 +161,7 @@ def _worker(rank, world, port, out_path, ckpt_dir):
             report[case] = {"loss": [float(m["loss"]), float(pm["loss"])],
                             "grad_norm": [float(m["grad_norm"]), float(pm["grad_norm"])],
                             "aux": [float(m["aux_loss"]), float(pm["aux_loss"])],
-                            "leaves": leaves}
+                            "leaves": leaves, "combine_at_owners": len(at_owners)}
             if case == "qwen3-moe-dense":  # the elastic checkpoint round trip
                 report["elastic"] = elastic(state, cfg, shape, rules, ckpt_dir, rank)
         report["wrappers"] = wrapper_checks(mesh)
@@ -153,6 +169,7 @@ def _worker(rank, world, port, out_path, ckpt_dir):
             with open(out_path, "w") as f:
                 json.dump(report, f)
     finally:
+        moe._combine_at_owners = combine
         dist.destroy_process_group()
 
 
@@ -284,6 +301,8 @@ def test_sharded_step_equals_unsharded(report, case):
         assert err <= (A_LOG_TOL if leaf.endswith("mixer.a_log") else TOL), (leaf, err)
     if case != "qwen3-moe-shard_map":
         assert abs(r["aux"][0] - r["aux"][1]) <= TOL
+    # the combine at the outputs' owners ran where, and only where, it should
+    assert (r["combine_at_owners"] > 0) == (case == AT_OWNERS), r["combine_at_owners"]
 
 
 def test_checkpoint_restores_onto_the_shrunk_mesh_bit_for_bit(report):
