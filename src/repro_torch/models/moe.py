@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..runtime import trace
 from ..sharding.act import constrain, current_context, flatten, gathered, replicated, shard_index, use_weight
 from ..sharding.rules import axes, placements, resolve
 from .layers import _mm
@@ -157,25 +158,31 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
     if ctx is not None:
         return _on_mesh(params, x, probs, gate_vals, expert_idx, flat_e, cfg, c), aux
 
-    pos_in_e = positions(flat_e, e)
-    keep = pos_in_e < c
-    if _RECORD is not None:
-        _record(expert_idx, keep.reshape(t, k), probs, k)
+    with trace.span("moe/dispatch"):
+        pos_in_e = positions(flat_e, e)
+        keep = pos_in_e < c
+        if _RECORD is not None:
+            _record(expert_idx, keep.reshape(t, k), probs, k)
 
-    # dispatch into (E·C, D). A kept assignment owns its slot alone; a
-    # dropped one adds a zero row to slot 0. So each buffer row receives at
-    # most one non-zero row, and index_add is exact whatever order the
-    # device's atomics take.
-    slot = torch.where(keep, flat_e * c + pos_in_e, 0)
-    x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d) * keep[:, None].to(x.dtype)
-    buf = torch.zeros((e * c, d), dtype=x.dtype, device=x.device).index_add(0, slot, x_rep)
-    h = experts(params, buf.reshape(e, c, d), cfg.mlp_kind)
+        # dispatch into (E·C, D). A kept assignment owns its slot alone; a
+        # dropped one adds a zero row to slot 0. So each buffer row receives
+        # at most one non-zero row, and index_add is exact whatever order
+        # the device's atomics take.
+        slot = torch.where(keep, flat_e * c + pos_in_e, 0)
+        x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d) * keep[:, None].to(x.dtype)
+        buf = torch.zeros((e * c, d), dtype=x.dtype, device=x.device).index_add(0, slot, x_rep)
+    if trace.counting():  # the expert rows computed, and those an assignment fills
+        trace.count("moe/rows", e * c)
+        trace.count("moe/kept", keep.sum())
+    with trace.span("moe/experts"):
+        h = experts(params, buf.reshape(e, c, d), cfg.mlp_kind)
 
     # combine: gather each assignment back, weight it by gate · keep (a
     # dropped one gathers slot 0 and is zeroed), sum over the k experts
-    weight = (gate_vals.reshape(t * k, 1) * keep[:, None]).to(h.dtype)
-    y = (h.reshape(e * c, d)[slot] * weight).reshape(t, k, d)
-    return y.sum(1).reshape(b, s, d), aux
+    with trace.span("moe/combine"):
+        weight = (gate_vals.reshape(t * k, 1) * keep[:, None]).to(h.dtype)
+        y = (h.reshape(e * c, d)[slot] * weight).reshape(t, k, d).sum(1)
+    return y.reshape(b, s, d), aux
 
 
 def _on_mesh(params: dict, x: DTensor, probs: DTensor, gate_vals: DTensor, expert_idx: DTensor,

@@ -44,6 +44,7 @@ from ..models.model import (
 )
 from ..models.model import decode_step as model_decode
 from ..optim import adamw
+from ..runtime import trace
 from ..sharding.act import (
     constrain,
     current_context,
@@ -244,6 +245,10 @@ def make_train_step(
     logical = batch_logical(cfg, "train")
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        with trace.span("train/step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params: Model = state["params"]
         named = dict(params.named_parameters())
         batch = _to_device(batch, params.device)
@@ -253,8 +258,10 @@ def make_train_step(
         for mb in _microbatches(batch, microbatches):
             # a slice of a batch-sharded dim comes back whole: shard it again
             mb = {k: constrain(v, logical[k]) if k in logical else v for k, v in mb.items()}
-            loss, ce_i, aux_i = loss_fn(params, mb)
-            g = torch.autograd.grad(loss, list(named.values()))
+            with trace.span("train/forward"):
+                loss, ce_i, aux_i = loss_fn(params, mb)
+            with trace.span("train/backward"):
+                g = torch.autograd.grad(loss, list(named.values()))
             # from the second microbatch on, g is a second f32 gradient tree
             # beside the accumulator: the MoE step on the card (Qwen3-MoE,
             # one layer at full width) runs with microbatches=1 to fit
@@ -266,7 +273,8 @@ def make_train_step(
         if microbatches > 1:
             torch._foreach_div_(grads, float(microbatches))
             ce, aux = ce / microbatches, aux / microbatches
-        _, opt, om = adamw.update(dict(zip(named, grads)), state["opt"], named, opt_cfg)
+        with trace.span("train/optimizer"):
+            _, opt, om = adamw.update(dict(zip(named, grads)), state["opt"], named, opt_cfg)
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         return new_state, {"loss": ce, "aux_loss": aux, **om}
 
@@ -280,7 +288,7 @@ def make_prefill_step(cfg: ModelConfig, flags: RunFlags):
         position only: it is row-wise, so those logits are the full
         forward's. On a mesh the weights stay on their FSDP shards
         (``sharding.act.weights_as_placed``), as in decode."""
-        with weights_as_placed():
+        with trace.span("serve/prefill"), weights_as_placed():
             p = cast_params(params, torch.bfloat16)
             x, cache, _ = _sequence(p, cfg, batch, flags, torch.bfloat16, True)
             return _head(p, cfg, x[:, -1:], norm_fn(flags))[:, -1], cache
