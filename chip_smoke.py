@@ -153,6 +153,14 @@ Phases, each printing one JSON line:
                norm, in the prefill and in each of the 32 decode calls);
                timed as serve is; then the plain path on the same weights (2
                layers: held to the reference's bar; 48 layers: reported)
+ 16a. moe_positions  the MoE dispatch's position-in-expert kernel: built,
+               held bit for bit to the one-hot cumsum at N of 1 to 1,048,576
+               (the warp's and the tile's edges) and E of 3, 16, 128, 1,024
+               (the largest difference reported), one call counted a call,
+               and timed beside the plain version, two plain PyTorch
+               rewrites (the cumsum along the contiguous axis, a stable
+               sort) and its bound at (N, E) = (32,768, 128), (512, 128),
+               (32,768, 16), and alone at its stated limit (1,048,576, 1,024)
  16b. serve_moe  generate() on Jamba (jamba-v0.1-52b cut from 32 to 8
                layers: one whole cycle, 1 attention and 7 Mamba-2 layers, 4
                MoE layers of 16 experts top-2 and 4 dense ones; 13.27 B
@@ -167,7 +175,8 @@ Phases, each printing one JSON line:
                a step beside its bound: every weight read once, the caches
                once, over 3.35 TB/s); launches counted (zeroed just before,
                read just after) and held to moe_want_launches (Jamba 1
-               flash, 7 SSD, 792 RMSNorm; Qwen3-MoE 4 flash, 561 RMSNorm),
+               flash, 7 SSD, 792 RMSNorm, 132 positions; Qwen3-MoE 4 flash,
+               561 RMSNorm, 132 positions),
                flash and SSD all on tensor cores; then the kernel path
                against the plain path on the same weights: each layer alone
                from the plain path's hidden state (the reference's bar on
@@ -218,8 +227,8 @@ Phases, each printing one JSON line:
                backward at that shape under torch.cuda.set_sync_debug_mode(
                "error"); 6 steps in a plain loop (no Supervisor, no
                checkpoint), the first with its launches counted (zeroed just
-               before, read just after: 2 flash, all tensor cores, and 9
-               RMSNorm): step wall (synchronised, median of steps 2-6),
+               before, read just after: 2 flash, all tensor cores, 9
+               RMSNorm, and the position-in-expert calls): step wall (synchronised, median of steps 2-6),
                tokens/s, peak memory, losses finite and falling, model FLOPs
                and their share of the bf16 peak with and without the
                recompute, and without the untied embedding lookup (6 · V
@@ -264,7 +273,10 @@ Phases, each printing one JSON line:
                Jamba's, and Qwen3-MoE's as serve_moe_qwen3) and flash and
                RMSNorm in one train step of each train phase (train_mesh's
                as train_mesh_step), flash its
-               forward times with the lse)
+               forward times with the lse), and one for the
+               position-in-expert kernel (no TPU kernel: its launches in
+               the Qwen3-MoE generate, and per path in moe_positions, each
+               serve_moe run and one train_moe step; its times)
 
 then the card's ``nvidia-smi`` name/power-limit line and, last, the result
 object. The ``dryrun`` phase (before ``kernels``) holds the dry run to a
@@ -1866,6 +1878,115 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
     }]
 
 
+# ---- the MoE dispatch's position-in-expert kernel ----------------------------------
+# (N, E) timed: the prefill cell's 4,096 tokens × top 8 over Qwen3-MoE's 128
+# experts, a decode batch of 64 × 8, and Jamba's 16 experts at the prefill's N
+MOE_POSITIONS_TIMED = ((32768, 128), (512, 128), (32768, 16))
+# the size the source note names as add_earlier's limit (its reads grow as
+# tiles² E): the kernel alone, beside its bytes bound
+MOE_POSITIONS_LIMIT = (1048576, 1024)
+# sizes held bit for bit: a warp's and a tile's edges (1,024 ids a block), the
+# prefill's N, and 1,024 tiles; at each of these expert counts
+MOE_POSITIONS_SIZES = (1, 31, 32, 33, 1023, 1024, 1025, 32768, 1048576)
+MOE_POSITIONS_EXPERTS = (3, 16, 128, 1024)
+
+
+def positions_by_inner_cumsum(flat_e, e: int):
+    """The one-hot cumsum along the contiguous axis: the (E, N) one-hot, so
+    PyTorch scans each expert's row in parallel."""
+    import torch
+
+    onehot = (torch.arange(e, device=flat_e.device)[:, None] == flat_e).to(torch.int32)
+    return ((torch.cumsum(onehot, 1) - 1) * onehot).sum(0)
+
+
+def positions_by_sort(flat_e, e: int):
+    """A stable sort of the ids: an id's position is its place in the sorted
+    order less the place where its expert's run starts."""
+    import torch
+
+    ids, order = torch.sort(flat_e, stable=True)
+    out = torch.empty_like(flat_e)
+    out[order] = torch.arange(flat_e.shape[0], device=flat_e.device) - torch.searchsorted(ids, ids)
+    return out
+
+
+def moe_positions_phase(card: str) -> dict:
+    """Phase ``moe_positions``: build the kernel; hold it bit for bit to its
+    plain version (the one-hot cumsum) on seeded uniform ids at every size
+    of :data:`MOE_POSITIONS_SIZES` and expert count of
+    :data:`MOE_POSITIONS_EXPERTS`; time it (CUDA events) at
+    :data:`MOE_POSITIONS_TIMED` beside the plain version, the two plain
+    PyTorch rewrites (:func:`positions_by_inner_cumsum`,
+    :func:`positions_by_sort`, each first held bit for bit to the plain
+    version) and the bound (the int64 ids read once and the int64 positions
+    written once over 3.35 TB/s), and alone at :data:`MOE_POSITIONS_LIMIT`.
+    Returns the ``kernels`` line's entry; its ``launches`` and the serving
+    paths' counts are filled in by ``main``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.kernels.moe_positions import kernel as PK
+    from repro_torch.kernels.moe_positions.ref import positions_reference
+
+    with ThreadPoolExecutor(1) as pool:
+        report_build("moe_positions_build", PK, pool.submit(timed, PK.build))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    PK.moe_positions_cuda.launches = 0
+    checked, differing, worst = 0, [], 0
+    for n in MOE_POSITIONS_SIZES:
+        for e in MOE_POSITIONS_EXPERTS:
+            flat = torch.randint(0, e, (n,), generator=g, device="cuda")
+            got, want = PK.moe_positions_cuda(flat, e), positions_reference(flat, e)
+            worst = max(worst, int((got - want).abs().max()))
+            if not torch.equal(got, want):
+                differing.append([n, e])
+            checked += 1
+            del got, want
+    torch.cuda.synchronize()
+    launches = PK.moe_positions_cuda.launches
+    if differing or launches != checked:
+        fail("moe_positions", "the kernel differs from the one-hot cumsum", differing=differing,
+             checked=checked, launches=launches, max_abs_err=worst)
+    rewrites = {"inner_cumsum": positions_by_inner_cumsum, "sort": positions_by_sort}
+    times = {}
+    for n, e in MOE_POSITIONS_TIMED:
+        flat = torch.randint(0, e, (n,), generator=g, device="cuda")
+        want = positions_reference(flat, e)
+        for name, fn in rewrites.items():
+            if not torch.equal(fn(flat, e), want):
+                fail("moe_positions", f"the {name} rewrite differs from the one-hot cumsum", n=n, e=e)
+        nbytes = 2 * 8 * n
+        library = {name: cuda_time_ms(lambda fn=fn: fn(flat, e), 100) for name, fn in rewrites.items()}
+        times[f"{n}x{e}"] = dict(
+            ms=cuda_time_ms(lambda: PK.moe_positions_cuda(flat, e), 500),
+            plain_ms=cuda_time_ms(lambda: positions_reference(flat, e), 20),
+            library_ms=library, bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes", bytes=nbytes)
+    n, e = MOE_POSITIONS_LIMIT
+    flat = torch.randint(0, e, (n,), generator=g, device="cuda")
+    times[f"{n}x{e}"] = dict(ms=cuda_time_ms(lambda: PK.moe_positions_cuda(flat, e), 20),
+                             bound_ms=2 * 8 * n / PEAK_BYTES_S * 1e3, bound_by="bytes", bytes=2 * 8 * n)
+    emit("moe_positions", ok=True, checked=checked, sizes=list(MOE_POSITIONS_SIZES),
+         experts=list(MOE_POSITIONS_EXPERTS), launches=launches, max_abs_err=worst, times=times, card=card)
+    head = times["%dx%d" % MOE_POSITIONS_TIMED[0]]
+    return {
+        "name": "moe_positions",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_positions/csrc/moe_positions.cu",
+        "replaces": "no TPU kernel: the reference's jnp.cumsum one-hot, src/repro/models/moe.py:63",
+        "launches_by_path": {"moe_positions": launches},
+        "max_abs_err": worst,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": "bytes",
+        # the faster plain PyTorch rewrite (no library call computes it)
+        "library_ms": min(head["library_ms"].values()),
+        "times": times,
+    }
+
+
 # ---- the MoE serving path: Jamba and Qwen3-MoE through the three LLM kernels ----------
 # (config, layers served (cut from 32 and 94), layers of the end-to-end comparison
 # held to the routing and value bars (0: all reported, none held))
@@ -1876,15 +1997,17 @@ MOE_FLIP_MAX = 0.05  # tokens whose top-k expert set differs, kernel vs plain pa
 def moe_want_launches(cfg, calls: int) -> dict:
     """Kernel launches one ``generate`` of ``calls`` forward calls (the
     prefill and each decode step) makes: a flash per attention layer and an
-    SSD per Mamba-2 layer, in the prefill only; and per call an RMSNorm for
+    SSD per Mamba-2 layer, in the prefill only; per call an RMSNorm for
     norm1 and norm2 of every layer with a channel mixer, q- and k-norm of
     every attention layer with qk-norm, the gated norm of every Mamba-2
-    layer, and the final norm."""
+    layer, and the final norm; and per call a position-in-expert call of
+    every MoE layer."""
     kinds = [cfg.block_kinds[i % cfg.cycle_len] for i in range(cfg.n_layers)]
     mlps = [cfg.mlp_kind_at(i % cfg.cycle_len) for i in range(cfg.n_layers)]
     per_call = (cfg.n_layers + sum(m != "none" for m in mlps) + kinds.count("mamba")
                 + (2 * kinds.count("attn") if cfg.qk_norm else 0) + 1)
-    return {"flash": kinds.count("attn"), "ssd": kinds.count("mamba"), "rmsnorm": per_call * calls}
+    return {"flash": kinds.count("attn"), "ssd": kinds.count("mamba"), "rmsnorm": per_call * calls,
+            "moe_positions": mlps.count("moe") * calls}
 
 
 def routing_flips(got, want, n_experts: int):
@@ -2026,6 +2149,7 @@ def serve_moe_phase(card: str, models=None, device="cuda", batch=SERVE_BATCH,
 
     from repro_torch.configs.registry import ARCHS, get_config
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_positions import kernel as PK
     from repro_torch.kernels.rmsnorm import kernel as NK
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch.serve import extend_cache, generate
@@ -2077,13 +2201,14 @@ def serve_moe_phase(card: str, models=None, device="cuda", batch=SERVE_BATCH,
         FK.reset_launches()
         SK.reset_launches()
         NK.rmsnorm_cuda.launches = 0
+        PK.moe_positions_cuda.launches = 0
         t0 = time.perf_counter()
         tokens, last = generate(model, cfg, prompt, new, flags=kernel_flags)
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash": FK.flash_attention_cuda.launches, "ssd": SK.ssd_cuda.launches,
-                    "rmsnorm": NK.rmsnorm_cuda.launches}
+                    "rmsnorm": NK.rmsnorm_cuda.launches, "moe_positions": PK.moe_positions_cuda.launches}
         routes = {"flash": dict(FK.launches_by_route), "ssd": dict(SK.launches_by_route)}
         peak = torch.cuda.max_memory_allocated() if on_card else None
 
@@ -2569,11 +2694,13 @@ def moe_sync_check(cfg, batch: int, seq: int, device) -> str | None:
 def determinism_probe(cfg, batch: int, seq: int, device) -> dict:
     """Under ``torch.use_deterministic_algorithms(True)``: each of the MoE
     layer's three order-sensitive CUDA ops at the train step's shape — the
-    dispatch ``index_add``, the position ``cumsum`` of the (T·k, E) one-hot
-    and the combine's gather backward (a scatter-add into the (E·C, D)
-    buffer) — as "ok" or the error it raises, verbatim."""
+    dispatch ``index_add``, the positions (``kernels.moe_positions``, integer
+    sums with no global atomics) and the combine's gather backward (a
+    scatter-add into the (E·C, D) buffer) — as "ok" or the error it raises,
+    verbatim."""
     import torch
 
+    from repro_torch.kernels.moe_positions import moe_positions
     from repro_torch.models.moe import capacity
 
     t, k, e, d = batch * seq, cfg.top_k, cfg.n_experts, cfg.d_model
@@ -2582,11 +2709,10 @@ def determinism_probe(cfg, batch: int, seq: int, device) -> dict:
     flat_e = torch.randint(0, e, (t * k,), generator=g, device=device)
     slot = flat_e * c + torch.randint(0, c, (t * k,), generator=g, device=device)
     rows = torch.randn(t * k, d, generator=g, device=device).to(torch.bfloat16)
-    onehot = (flat_e[:, None] == torch.arange(e, device=device)).to(torch.int32)
     h = torch.randn(e * c, d, generator=g, device=device).to(torch.bfloat16).requires_grad_()
     ops = {
         "index_add": lambda: torch.zeros(e * c, d, dtype=torch.bfloat16, device=device).index_add(0, slot, rows),
-        "cumsum": lambda: torch.cumsum(onehot, 0),
+        "positions": lambda: moe_positions(flat_e, e),
         "gather_backward": lambda: torch.autograd.grad(h[slot].float().sum(), h),
     }
     out = {}
@@ -2621,6 +2747,7 @@ def train_moe_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import for_model
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_positions.kernel import moe_positions_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.models.model import RunFlags
     from repro_torch.models.moe import capacity, record_routing
@@ -2668,13 +2795,15 @@ def train_moe_phase(card: str, cfg=None, device="cuda", **overrides) -> dict:
         if i == 0:
             FK.reset_launches()
             rmsnorm_cuda.launches = 0
+            moe_positions_cuda.launches = 0
         t = time.perf_counter()
         state, m = step_fn(state, b)
         sync()
         walls.append(time.perf_counter() - t)
         if i == 0:
             launches = {"flash": FK.flash_attention_cuda.launches,
-                        "flash_by_route": dict(FK.launches_by_route), "rmsnorm": rmsnorm_cuda.launches}
+                        "flash_by_route": dict(FK.launches_by_route), "rmsnorm": rmsnorm_cuda.launches,
+                        "moe_positions": moe_positions_cuda.launches}
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated() if on_card else None
     step_s = sorted(walls[1:])[len(walls[1:]) // 2]
@@ -3608,6 +3737,7 @@ def main() -> int:
 
     flash = flash_phases(card, flash_build)
     ssd_entry, rms_entry = mamba_phases(card, ssd_build, rms_build)
+    pos_entry = moe_positions_phase(card)
     moe = serve_moe_phase(card)
     jamba, qwen_moe = moe["jamba-v0.1-52b"], moe["qwen3-moe-235b-a22b"]
     flash.update(flash_grad_phase(card))
@@ -3628,6 +3758,12 @@ def main() -> int:
                                      "train_step": train_launches["rmsnorm"],
                                      "train_moe_step": moe_train_launches["rmsnorm"],
                                      "train_mesh_step": mesh_launches["rmsnorm"]}
+    # the Qwen3-MoE generate's count (zeroed just before it), as the prefill
+    # cell runs the kernel; the phase's own parity loop under launches_by_path
+    pos_entry["launches"] = qwen_moe["moe_positions"]
+    pos_entry["launches_by_path"].update(serve_moe=jamba["moe_positions"],
+                                         serve_moe_qwen3=qwen_moe["moe_positions"],
+                                         train_moe_step=moe_train_launches["moe_positions"])
 
     # ---- kernels -------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = timings[(1, 4)]  # the main path's shape
@@ -3649,7 +3785,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, flash, ssd_entry, rms_entry]}), flush=True)
+    }, flash, ssd_entry, rms_entry, pos_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 the torch counterpart of ``repro.models.moe``.
 
 Dispatch is the reference's deterministic position-in-expert construction:
-a token-major one-hot cumsum over the flat (token, k) assignments gives each
-assignment its place in its expert's queue, and assignments at or past the
-static capacity ``C`` are dropped (capacity-factor semantics). Tokens keep
-their top-k gates renormalised over the k chosen experts; a dropped
-assignment contributes nothing. Every shape comes from the input's shape and
-the config (``capacity`` is a Python int), and no step reads a device value
-on the host: the layer runs without a host synchronisation.
+each flat (token, k) assignment's place in its expert's queue is the number
+of earlier assignments, token-major, to the same expert (the reference's
+one-hot cumsum; a hand-written kernel on the card, :func:`positions`), and
+assignments at or past the static capacity ``C`` are dropped
+(capacity-factor semantics). Tokens keep their top-k gates renormalised
+over the k chosen experts; a dropped assignment contributes nothing. Every
+shape comes from the input's shape and the config (``capacity`` is a Python
+int), and no step reads a device value on the host: the layer runs without
+a host synchronisation.
 
 The expert MLPs are three batched products over the (E, C, D) dispatch
 buffer, the reference's grouped einsums (outside any Pallas kernel there),
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
+from ..kernels.moe_positions import moe_positions
 from ..runtime import trace
 from ..sharding.act import constrain, current_context, flatten, gathered, replicated, shard_index, use_weight
 from ..sharding.rules import axes, placements, resolve
@@ -110,10 +113,11 @@ def route(xf: torch.Tensor, router: torch.Tensor, k: int):
 
 
 def positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
-    """Each flat assignment's place in its expert's queue, by a token-major
-    one-hot cumsum (T·k, E): earlier tokens win capacity."""
-    onehot = (flat_e[:, None] == torch.arange(e, device=flat_e.device)).to(torch.int32)
-    return ((torch.cumsum(onehot, 0) - 1) * onehot).sum(-1)
+    """Each flat assignment's place in its expert's queue, token-major:
+    earlier tokens win capacity. The integers of the reference's one-hot
+    cumsum (T·k, E); on the card a kernel computes them
+    (``kernels.moe_positions``)."""
+    return moe_positions(flat_e, e)
 
 
 def experts(params: dict, grouped: torch.Tensor, mlp_kind: str) -> torch.Tensor:
@@ -192,7 +196,7 @@ def _on_mesh(params: dict, x: DTensor, probs: DTensor, gate_vals: DTensor, exper
     (B over the data axes) and on the experts it holds in the grouped
     layout (E over the model axis where E divides it):
 
-      * positions: the local one-hot cumsum plus the counts of the
+      * positions: the local positions plus the counts of the
         assignments before this device's tokens (from the flat expert ids,
         small integers gathered whole), so each kept assignment owns the
         slot it owns in the unsharded layer;

@@ -120,9 +120,14 @@ def test_reduced_generate_launch_counts(cuda, name):
     """One generate of 4 new tokens: a flash per attention layer and an SSD
     per Mamba-2 layer in the prefill, and (norm1 + norm2 per layer, q- and
     k-norm per qk-norm attention layer, the gated norm per Mamba-2 layer,
-    the final norm) RMSNorms in each of the 5 calls."""
+    the final norm) RMSNorms and a position-in-expert call per MoE layer in
+    each of the 5 calls, as ``chip_smoke.moe_want_launches`` counts them."""
+    import sys
+    from pathlib import Path
+
     from repro_torch.configs.registry import reduced_config
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.moe_positions import kernel as PK
     from repro_torch.kernels.rmsnorm import kernel as NK
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch.serve import generate
@@ -135,6 +140,7 @@ def test_reduced_generate_launch_counts(cuda, name):
     FK.reset_launches()
     SK.reset_launches()
     NK.rmsnorm_cuda.launches = 0
+    PK.moe_positions_cuda.launches = 0
     out, last = generate(model, cfg, {"tokens": tokens.to(cuda)}, 4, flags=flags)
     torch.cuda.synchronize()
     attn = cfg.block_kinds.count("attn") * cfg.n_layers // cfg.cycle_len
@@ -143,4 +149,10 @@ def test_reduced_generate_launch_counts(cuda, name):
     assert FK.flash_attention_cuda.launches == attn
     assert SK.ssd_cuda.launches == mamba
     assert NK.rmsnorm_cuda.launches == 5 * per_call
+    moe_layers = sum(cfg.mlp_kind_at(i % cfg.cycle_len) == "moe" for i in range(cfg.n_layers))
+    assert moe_layers > 0 and PK.moe_positions_cuda.launches == 5 * moe_layers
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as CS
+
+    assert CS.moe_want_launches(cfg, 5)["moe_positions"] == PK.moe_positions_cuda.launches
     assert out.shape == (4, 4) and torch.isfinite(last).all()

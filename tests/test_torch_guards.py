@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 JAX_FREE_TESTS = ("test_torch_gpu.py", "test_torch_gpu_flash.py", "test_torch_gpu_ssd.py",
                   "test_torch_gpu_rmsnorm.py", "test_torch_gpu_chain.py",
                   "test_torch_gpu_serve.py", "test_torch_gpu_train.py", "test_torch_gpu_moe.py",
-                  "test_torch_gpu_analysis.py", "test_torch_gpu_mesh.py")
+                  "test_torch_gpu_analysis.py", "test_torch_gpu_mesh.py",
+                  "test_torch_gpu_moe_positions.py")
 
 
 def port_sources(ext=".py"):
@@ -48,6 +49,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "core/event_sim.py", "runtime/health.py",
                    "models/model.py", "models/mamba2.py", "models/moe.py", "launch/serve.py",
                    "kernels/flash_attention/ops.py", "kernels/ssd/ops.py", "kernels/rmsnorm/ops.py",
+                   "kernels/moe_positions/ops.py",
                    "configs/registry.py", "kernels/_build.py", "models/flash_ref.py",
                    "optim/adamw.py", "optim/compress.py", "train/step.py", "data/pipeline.py",
                    "checkpoint/manager.py", "launch/train.py", "sharding/rules.py",
@@ -67,7 +69,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_cuda_sources_are_the_kernels():
     names = sorted(os.path.basename(p) for p in port_sources(".cu"))
-    assert names == ["flash_attention.cu", "phase_sim.cu", "rmsnorm.cu", "ssd.cu"], names
+    assert names == ["flash_attention.cu", "moe_positions.cu", "phase_sim.cu", "rmsnorm.cu", "ssd.cu"], names
 
 
 @pytest.mark.parametrize("cu", port_sources(".cu"), ids=os.path.basename)
@@ -75,11 +77,16 @@ def test_cuda_source_has_only_float_constants(cu):
     """A double literal moves f32 arithmetic to double (the phase-sim retire
     test ``c_t <= phi * (1 + 1e-9)`` would then retire other tasks; the
     flash kernel's masked scores would leave f32; so would the SSD decay and
-    the RMSNorm statistics)."""
+    the RMSNorm statistics). A source with no ``float`` at all (the
+    position-in-expert kernel's integer counts) has no constant to scan,
+    and must stay free of floating types and literals altogether."""
     with open(cu) as f:
         src = f.read()
     code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
     floats = re.findall(r"(?<![\w.])(\d+\.\d*(?:e[+-]?\d+)?|\d+e[+-]?\d+)(f?)", code)
+    if not re.search(r"\bfloat\b|__half|bfloat16", code):
+        assert not floats and "double" not in code, floats
+        return
     assert floats, "no floating constants found: scan vacuous"
     doubles = [lit for lit, suffix in floats if not suffix]
     assert not doubles, doubles
@@ -88,7 +95,7 @@ def test_cuda_source_has_only_float_constants(cu):
     assert not re.search(r"__(expf|logf|fdividef|powf)\b", code)
 
 
-@pytest.mark.parametrize("name", ["phase_sim", "flash_attention", "ssd", "rmsnorm"])
+@pytest.mark.parametrize("name", ["phase_sim", "flash_attention", "ssd", "rmsnorm", "moe_positions"])
 def test_kernel_build_flags(name):
     import importlib
 

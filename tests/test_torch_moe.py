@@ -17,6 +17,10 @@ against JAX: both sum in f32 and round once, in orders that differ.
 The stack's aux loss under ``remat`` ("full", "dots") equals the one
 without, and its f32 gradient on reduced qwen3-moe lies within 1e-5 of
 ``jax.grad``'s, every parameter leaf.
+
+The position-in-expert wrapper (``kernels.moe_positions``) on CPU and meta
+tensors: a hand-worked case, the reference's one-hot formula on random ids,
+the meta path's shape and dtype, and the refusals it shares with the card.
 """
 import dataclasses
 
@@ -31,6 +35,7 @@ from repro.configs.registry import reduced_config as ref_reduced  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro.models import moe as RMoE  # noqa: E402
 from repro_torch.configs.registry import get_config, reduced_config  # noqa: E402
+from repro_torch.kernels.moe_positions import moe_positions  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import moe as PMoE  # noqa: E402
 from repro_torch.models.convert import _tensor, params_from_reference  # noqa: E402
@@ -125,6 +130,58 @@ def test_dropped_assignments_add_zeros_to_slot_zero():
     # tokens past capacity in both of their experts get nothing back
     lost = ~keep.any(-1)
     assert lost.any() and not y.reshape(B * S, -1)[lost].any()
+
+
+def test_positions_hand_worked():
+    """Token-major ranks within each expert: expert 3 at flat 0, 2, 3 gets
+    0, 1, 2; expert 1 at 1, 4 gets 0, 1; expert 0 at 5 gets 0."""
+    flat = torch.tensor([3, 1, 3, 3, 1, 0])
+    want = torch.tensor([0, 0, 1, 2, 1, 0])
+    assert torch.equal(PMoE.positions(flat, 4), want)
+    assert torch.equal(moe_positions(flat, 4), want)
+
+
+@pytest.mark.parametrize("n,e", [(1, 1), (33, 3), (1025, 8), (4096, 128)])
+def test_positions_on_cpu_equal_the_one_hot_formula(n, e):
+    """The wrapper on CPU tensors against the reference's formula in numpy
+    (``src/repro/models/moe.py``: the one-hot's cumsum over the flat axis,
+    less one, where the one-hot is set)."""
+    flat = np.random.default_rng(n + e).integers(0, e, n)
+    onehot = (flat[:, None] == np.arange(e)).astype(np.int64)
+    want = ((np.cumsum(onehot, 0) - 1) * onehot).sum(-1)
+    got = moe_positions(torch.from_numpy(flat), e)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
+
+
+def test_positions_on_meta_tensors_are_int64_of_the_same_length():
+    """The dry run's meta path: no data, the plain version's shape and dtype."""
+    got = moe_positions(torch.empty(4096 * 8, dtype=torch.long, device="meta"), 128)
+    assert got.device.type == "meta" and got.dtype == torch.int64 and got.shape == (4096 * 8,)
+
+
+def test_positions_refuse_what_the_kernel_does_not_take():
+    """The same refusals on the CPU as on the card: int32 ids, a strided or
+    2-D view, expert counts outside [1, MAX_EXPERTS], and a DTensor (every
+    caller passes its local ids)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.moe_positions import kernel as PK
+    from repro_torch.launch.dryrun import fake_world
+
+    flat = torch.arange(64) % 8
+    with pytest.raises(TypeError):
+        moe_positions(flat.to(torch.int32), 8)
+    for bad in (flat[::2], flat.reshape(8, 8)):
+        with pytest.raises(ValueError):
+            moe_positions(bad, 8)
+    for e in (0, PK.MAX_EXPERTS + 1):
+        with pytest.raises(ValueError):
+            moe_positions(flat, e)
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1,))
+        with pytest.raises(TypeError):
+            moe_positions(DTensor.from_local(flat, mesh, [Replicate()], run_check=False), 8)
 
 
 def test_record_routing_nests_and_ends():

@@ -191,7 +191,8 @@ def test_serve_moe_phase_rehearses_on_the_cpu(capsys):
     (no launches are counted and no host sync is checked there): one
     ``serve_moe`` line a model, Jamba's end-to-end comparison held, and the
     launch counts it would hold on the card (24 RMSNorm a Jamba call, 17 a
-    4-layer Qwen3-MoE call)."""
+    4-layer Qwen3-MoE call; a position-in-expert call an MoE layer a call,
+    4 in each)."""
     import json
     import sys
     from pathlib import Path
@@ -201,8 +202,8 @@ def test_serve_moe_phase_rehearses_on_the_cpu(capsys):
 
     jamba = reduced_config(JAMBA)
     qwen = dataclasses.replace(reduced_config("qwen3-moe-235b-a22b"), n_layers=4)
-    assert CS.moe_want_launches(jamba, 33) == {"flash": 1, "ssd": 7, "rmsnorm": 792}
-    assert CS.moe_want_launches(qwen, 33) == {"flash": 4, "ssd": 0, "rmsnorm": 561}
+    assert CS.moe_want_launches(jamba, 33) == {"flash": 1, "ssd": 7, "rmsnorm": 792, "moe_positions": 132}
+    assert CS.moe_want_launches(qwen, 33) == {"flash": 4, "ssd": 0, "rmsnorm": 561, "moe_positions": 132}
     out = CS.serve_moe_phase("cpu", models=[(jamba, 4), (qwen, 0)], device="cpu", batch=4,
                              prompt_len=32, new=2, profile=False)
     assert set(out) == {jamba.name, qwen.name}
@@ -213,4 +214,4 @@ def test_serve_moe_phase_rehearses_on_the_cpu(capsys):
         assert len(d["layerwise"]) == d["layers"]
         assert all(r["within_bar_routed_alike"] for r in d["layerwise"])
     assert set(lines[0]["plain"]) == {"held", "all"} and set(lines[1]["plain"]) == {"all"}
-    assert lines[0]["want_launches"] == {"flash": 1, "ssd": 7, "rmsnorm": 24 * 3}
+    assert lines[0]["want_launches"] == {"flash": 1, "ssd": 7, "rmsnorm": 24 * 3, "moe_positions": 4 * 3}
