@@ -1487,8 +1487,16 @@ SSD_SPLIT_CASES = [(2, 512, 4, 128, 128, 64, "float32", "float32", pb) for pb in
 SSD_ROUTE_CASES = [(2 if s < 2048 else 1, s, 4 if s < 2048 else 2, p, n, q, dt)
                    for dt in ("bfloat16", "float32") for q in (64, 128) for p in (64, 128)
                    for n in (64, 128) for s in sorted({q, 512, 2048})]
+# (B, S, H, P, G, N, chunk, dtype) through ops.ssd with B and C in G groups
+# (head h reading group h // (H / G)), sliced from one projection as a grouped
+# Mamba-2 passes them: Nemotron-H's prefill layout at 2,048 and 16,384 tokens
+# on the tensor-core route, then both routes smaller
+SSD_GROUP_CASES = [(1, 2048, 64, 64, 8, 128, 128, "bfloat16"), (1, 16384, 64, 64, 8, 128, 128, "bfloat16"),
+                   (2, 512, 8, 64, 2, 128, 64, "bfloat16"), (2, 256, 8, 32, 4, 16, 32, "float32"),
+                   (1, 256, 4, 64, 2, 128, 128, "float32")]
 SSD_TILE_TOL = 1e-4  # one wgmma tile vs torch.matmul, over the tile's largest |value|
 SSD_TIMED = (4, 512, 32, 64, 128, 64)  # serve_mamba's prefill shape, bf16, chunk 64
+SSD_GROUP_TIMED = (1, 16384, 64, 64, 8, 128, 128)  # Nemotron-H's prefill SSD: B, S, H, P, G, N, chunk
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # the reference's bars (tests/test_kernels.py)
 # tests/test_kernels.py's shapes, serve_mamba's prefill and decode rows, a ragged count
 # an odd width, Qwen3's qk-norm rows (d = 128 over B*S*H rows), wide rows
@@ -1532,6 +1540,45 @@ def ssd_model_inputs(b, s, h, p, n, seed, dtype=None):
     dt = F.softplus(torch.randn(b, s, h, generator=g, device="cuda"))
     a = -torch.exp(torch.randn(h, generator=g, device="cuda"))
     return xbc[..., :h * p].view(b, s, h, p), dt, a, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+
+def ssd_group_inputs(b, s, h, p, g, n, seed, dtype=None):
+    """x, dt, a, B, C as a grouped Mamba-2 prefill passes them: x (B, S, H,
+    P) and B, C (B, S, G, N) views of one (B, S, H*P + 2GN) projection (bf16
+    unless ``dtype`` says otherwise), dt f32 = softplus(normal), a =
+    -exp(normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * g * n, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, s, h, generator=gen, device="cuda"))
+    a = -torch.exp(torch.randn(h, generator=gen, device="cuda"))
+    return (xbc[..., :h * p].view(b, s, h, p), dt, a, xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n)),
+            xbc[..., h * p + g * n:].unflatten(-1, (g, n)))
+
+
+def ssd_outputs() -> dict:
+    """The SSD kernel's y and final h at the timing shapes, one SSM group
+    (B and C (B, S, N)), through ``ssd_cuda`` on contiguous inputs and
+    ``ops.ssd`` on the model's slices, as int bits: what two versions of the
+    kernel are compared on bit for bit. Uses only entry points every
+    version of the port has."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ops import ssd as ssd_ops
+
+    outs = {}
+    for s in (SSD_TIMED[1], 2048):
+        b, _, h, p, n, q = SSD_TIMED
+        args = ssd_model_inputs(b, s, h, p, n, seed=s)
+        dense = [t.contiguous() for t in args]
+        for name, (y, hf) in (("ssd_cuda", SK.ssd_cuda(*dense, q)), ("ops", ssd_ops(*args, chunk=q))):
+            outs[f"ssd/{name}/{s}/y"] = y.view(torch.int16).cpu()
+            outs[f"ssd/{name}/{s}/h"] = hf.view(torch.int32).cpu()
+    return outs
 
 
 def ssd_check(args, chunk, y_tol, fn=None) -> dict:
@@ -1650,6 +1697,10 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
             yield (dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype=xd, bc_dtype=xd, layout="model"),
                    ssd_model_inputs(b, s, h, p, n, seed=200 + i, dtype=dtypes[xd]), q, ssd_ops)
 
+        for i, (b, s, h, p, g, n, q, xd) in enumerate(SSD_GROUP_CASES):  # ops.ssd, G groups
+            yield (dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q, dtype=xd, bc_dtype=xd, layout="model, grouped"),
+                   ssd_group_inputs(b, s, h, p, g, n, seed=400 + i, dtype=dtypes[xd]), q, ssd_ops)
+
     for case, args, q, fn in ssd_cases():
         r = ssd_check(args, q, SSD_Y_TOL[case["dtype"]], fn)
         case.update(r)
@@ -1730,6 +1781,21 @@ def mamba_phases(card: str, ssd_build, rms_build) -> list:
         ssd_t[s].update(ops_ms=ops_ms, bound_share=bound_ms / ms, ssd_route=r["route"])
         emit("ssd_timing", ok=True, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q), dtype="bfloat16",
              layout="model", bytes=nbytes, ops=nops, check=r, card=card, **ssd_t[s])
+
+    b, s, h, p, g, n, q = SSD_GROUP_TIMED  # the grouped layout at Nemotron-H's prefill
+    args = ssd_group_inputs(b, s, h, p, g, n, seed=s + g)
+    r = ssd_check(args, q, SSD_Y_TOL["bfloat16"], ssd_ops)
+    if not r["ok"]:
+        fail("ssd_timing", "grouped kernel disagrees with the plain version on the timed inputs", check=r)
+    before = SK.ssd_cuda.launches
+    ms = cuda_time_ms(lambda: ssd_ops(*args, chunk=q), 50)
+    launches = SK.ssd_cuda.launches - before
+    shared = ssd_model_inputs(b, s, h, p, n, seed=s)  # the same heads with one group, for comparison
+    one_group_ms = cuda_time_ms(lambda: ssd_ops(*shared, chunk=q), 50)
+    nbytes = 2 * b * s * h * p * 2 + 4 * b * s * h + 2 * b * s * g * n * 2 + 4 * b * h * p * n
+    emit("ssd_timing", ok=True, shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q), dtype="bfloat16",
+         layout="model, grouped", ms=ms, one_group_ms=one_group_ms, launches=launches, bytes=nbytes,
+         bytes_bound_ms=nbytes / PEAK_BYTES_S * 1e3, check=r, card=card)
 
     # ---- rmsnorm_timing -----------------------------------------------------------------
     rms_t = {}
@@ -3450,8 +3516,9 @@ def kernel_times(card: str, outputs_path=None) -> dict:
     of one projection; ``rmsnorm_cuda`` and the host cost of
     ``ops.rmsnorm``); for timing two trees on one card. With
     ``outputs_path``: saves the phase-sim outputs of :func:`phase_sim_outputs`
-    there, or, where the file exists, counts the outputs that differ from
-    it bit for bit."""
+    and the one-group SSD outputs of :func:`ssd_outputs` there, or, where
+    the file exists, counts the outputs of each that differ from it bit for
+    bit."""
     import torch
 
     import repro_torch
@@ -3488,12 +3555,13 @@ def kernel_times(card: str, outputs_path=None) -> dict:
                                                    200 if b <= 256 else 50))
     if outputs_path:
         got = phase_sim_outputs(db, bud)
+        got.update(ssd_outputs())
         if os.path.exists(outputs_path):
             want = torch.load(outputs_path)
-            out["phase_sim_bitwise"] = dict(
-                against=outputs_path, cases=len(got),
-                outputs=sum(v.numel() for v in got.values()),
-                differing=sum(int((got[k] != want[k]).sum()) for k in got))
+            for key, ssd_keys in (("phase_sim_bitwise", False), ("ssd_bitwise", True)):
+                mine = [k for k in got if k.startswith("ssd/") == ssd_keys and k in want]
+                out[key] = dict(against=outputs_path, cases=len(mine), outputs=sum(got[k].numel() for k in mine),
+                                differing=sum(int((got[k] != want[k]).sum()) for k in mine))
         else:
             os.makedirs(os.path.dirname(os.path.abspath(outputs_path)), exist_ok=True)
             torch.save(got, outputs_path)

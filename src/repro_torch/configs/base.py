@@ -3,8 +3,14 @@
 One generic decoder stack instantiates every assigned architecture: layers are
 grouped into a repeating *cycle* (so heterogeneous stacks like Jamba's 1:7
 Mamba:attention interleave scan cleanly over cycles), and each cycle position
-declares its sequence mixer ("attn" | "mamba") and its channel mixer
-("dense" | "moe" | "none").
+declares its sequence mixer ("attn" | "mamba" | "none") and its channel
+mixer ("dense" | "moe" | "none"). A position whose sequence mixer is
+"none" is a channel mixer alone, with one norm and one residual (the
+Nemotron-H layout, where every layer holds one mixer).
+
+Fields after ``subquadratic`` are the port's own (no field of the
+reference's ``ModelConfig``); each defaults to the behaviour every
+registered architecture has.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = (16, 24, 24)  # halves of head_dim
     # channel mixer
     d_ff: int = 0
-    mlp_kind: str = "swiglu"  # "swiglu" | "geglu"
+    mlp_kind: str = "swiglu"  # "swiglu" | "geglu" | "gelu" | "relu2" (non-gated relu(x W)^2)
     # MoE
     n_experts: int = 0
     top_k: int = 0
@@ -50,6 +56,19 @@ class ModelConfig:
     norm_eps: float = 1e-6
     # attention family (long_500k applicability; see DESIGN.md)
     subquadratic: bool = False
+    # ---- port-only fields ----------------------------------------------
+    # Mamba-2: heads given explicitly (0: ssm_expand * d_model / ssm_head_dim)
+    # and SSM groups, each shared B and C for ssm_heads / ssm_groups heads;
+    # the gated norm then runs over each group's channels
+    ssm_heads: int = 0
+    ssm_groups: int = 1
+    # MoE router: "softmax" (top-k by probability, gates renormalised) or
+    # "sigmoid" (top-k by sigmoid score + a learned correction bias, gates
+    # the raw scores renormalised), the gates then times moe_routed_scale
+    moe_router: str = "softmax"
+    moe_routed_scale: float = 1.0
+    # a shared expert of this width on every token of a MoE layer (0: none)
+    moe_shared_d_ff: int = 0
 
     # ---- derived --------------------------------------------------------
     @property
@@ -63,11 +82,13 @@ class ModelConfig:
 
     @property
     def ssm_d_inner(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_n_heads(self) -> int:
-        return self.ssm_d_inner // self.ssm_head_dim
+        return self.ssm_heads or self.ssm_d_inner // self.ssm_head_dim
 
     def mlp_kind_at(self, pos: int) -> str:
         return self.mlp_kinds[pos % len(self.mlp_kinds)]
@@ -87,17 +108,20 @@ class ModelConfig:
         per_pos_total = []
         per_pos_active = []
         for pos, kind in enumerate(self.block_kinds):
-            p_tot = 2 * D  # two rms norms (approx; mamba-only uses one)
-            p_act = 2 * D
-            if kind == "attn":
+            # two rms norms (approx; mamba-only uses one); a mixer-less layer one
+            p_tot = p_act = D if kind == "none" else 2 * D
+            if kind == "none":
+                pass
+            elif kind == "attn":
                 qkvo = D * self.n_heads * self.head_dim * 2 + D * self.n_kv_heads * self.head_dim * 2
                 p_tot += qkvo
                 p_act += qkvo
             else:  # mamba2
                 d_in = self.ssm_d_inner
                 nh = self.ssm_n_heads
-                proj = D * (2 * d_in + 2 * self.ssm_state + nh) + d_in * D
-                conv = (d_in + 2 * self.ssm_state) * self.ssm_conv_width
+                bc = 2 * self.ssm_groups * self.ssm_state
+                proj = D * (2 * d_in + bc + nh) + d_in * D
+                conv = (d_in + bc) * self.ssm_conv_width
                 p_tot += proj + conv + 2 * nh + d_in
                 p_act += proj + conv + 2 * nh + d_in
             mk = self.mlp_kind_at(pos)
@@ -106,9 +130,12 @@ class ModelConfig:
                 p_tot += n_mats * D * self.d_ff
                 p_act += n_mats * D * self.d_ff
             elif mk == "moe":
+                n_mats = 2 if self.mlp_kind == "relu2" else 3  # a GELU expert is gated
                 f = self.moe_d_ff or self.d_ff
-                p_tot += D * self.n_experts + self.n_experts * 3 * D * f
-                p_act += D * self.n_experts + self.top_k * 3 * D * f
+                router = D * self.n_experts + (self.n_experts if self.moe_router == "sigmoid" else 0)
+                shared = n_mats * D * self.moe_shared_d_ff
+                p_tot += router + self.n_experts * n_mats * D * f + shared
+                p_act += router + self.top_k * n_mats * D * f + shared
             per_pos_total.append(p_tot)
             per_pos_active.append(p_act)
         body_tot = self.n_cycles * sum(per_pos_total)

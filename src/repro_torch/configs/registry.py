@@ -12,6 +12,7 @@ from . import (  # noqa: F401 — imported for registration side effect below
     mamba2_370m,
     mistral_large_123b,
     musicgen_large,
+    nemotron3_nano_30b_a3b,
     qwen2_vl_2b,
     qwen3_1_7b,
     qwen3_moe_235b_a22b,
@@ -35,14 +36,21 @@ ARCHS: Dict[str, ModelConfig] = {
 }
 
 
+# configurations of the port alone: the reference has no such model, and
+# ``ARCHS`` stays the reference's list
+PORT_ONLY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (nemotron3_nano_30b_a3b,)}
+
+
 def arch_names() -> List[str]:
     return list(ARCHS)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]
+    """An architecture of ``ARCHS`` or of ``PORT_ONLY``."""
+    known = {**ARCHS, **PORT_ONLY}
+    if name not in known:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(known)}")
+    return known[name]
 
 
 def reduced_config(name: str) -> ModelConfig:

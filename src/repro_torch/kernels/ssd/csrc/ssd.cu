@@ -12,7 +12,9 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/ssd/kernel.py::_ssd_kernel
 // and computes what it computes, chunk by chunk of Q tokens, for one batch
-// row and one head (a = A of the head, one SSM group shared by all heads):
+// row and one head (a = A of the head; B and C those of the head's SSM
+// group: with G groups, head h reads group h / (H / G), so G = 1 shares one
+// B and one C among all heads, the reference's layout):
 //   da = dt * a, cum = the inclusive prefix sum of da (in token order),
 //   xdt = x * dt,
 //   y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) xdt_j     (intra-chunk)
@@ -59,7 +61,10 @@
 //   - Two heads of one SSM group could share each B/C tile, but at the
 //     serving shape that halves the grid to 64 blocks on 132 SMs, and a
 //     block's 117,792 bytes of shared memory leave no room for a second one
-//     on an SM (228 KB): one head a block.
+//     on an SM (228 KB): one head a block. With G groups (B and C of shape
+//     (B, S, G, N)) a block's TMA loads of B and C take its head's group
+//     through the group coordinate of a 4-D tensor map; G = 1 is the same
+//     map with a group axis of one, so every G is one launch a call.
 // The CUDA-core route is the first design of this kernel, kept for f32, whose
 // bars the bf16 split would meet but whose inputs would double the bytes, and
 // for the sizes the tensor-core tiles do not take: one block of 256 threads
@@ -89,7 +94,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // ============================================================================
 // CUDA-core route
 // ============================================================================
-// Layout: x, y (B, S, H, P); dt (B, S, H) f32; a (H,) f32; B, C (B, S, N);
+// Layout: x, y (B, S, H, P); dt (B, S, H) f32; a (H,) f32; B, C (B, S, G, N);
 // h (B, H, P, N) f32; all contiguous. x and y f32 or bf16, B and C f32 or
 // bf16 (independently). Q <= 128, P <= 128, N <= 128, Q divides S. One
 // block of 256 threads per (head, batch row); thread (ty, tx) =
@@ -123,7 +128,8 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
                                                      const TBC* __restrict__ bm,
                                                      const TBC* __restrict__ cm,
                                                      TX* __restrict__ y, float* __restrict__ hout,
-                                                     int s, int nh, int p_total, int pb, int n, int q) {
+                                                     int s, int nh, int ng, int p_total, int pb, int n,
+                                                     int q) {
     extern __shared__ __align__(16) float smem[];
     // this block's head-dim columns: [p_off, p_off + p) of x, y and the rows
     // of h (each depends on its own x column alone, so no sum changes order)
@@ -142,6 +148,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
     const int head = blockIdx.x, b = blockIdx.y;
+    const int grp = head / (nh / ng);  // the head's SSM group
     const float ah = a[head];
 
     for (int e = tid; e < p * ldn; e += NT) hs[e] = 0.0f;
@@ -154,8 +161,9 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
 #pragma unroll 8
         for (int e = tid; e < q * n; e += NT) {
             const int t = e / n, k = e - t * n;
-            bs[t * ldn + k] = to_f32(bm[(tok0 + t) * n + k]);
-            cs[t * ldn + k] = to_f32(cm[(tok0 + t) * n + k]);
+            const size_t at = ((tok0 + t) * ng + grp) * n + k;
+            bs[t * ldn + k] = to_f32(bm[at]);
+            cs[t * ldn + k] = to_f32(cm[at]);
         }
         __syncthreads();
         if (tid == 0) {  // an ordered prefix, as cumsum sums in token order
@@ -312,7 +320,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(const TX* __restrict__ x,
 }
 template <typename TX, typename TBC>
 int launch_typed(const void* x, const void* dt, const void* a, const void* bm, const void* cm,
-                 void* y, void* h, int bsz, int s, int nh, int p, int n, int q, int pb,
+                 void* y, void* h, int bsz, int s, int nh, int ng, int p, int n, int q, int pb,
                  cudaStream_t stream) {
     const size_t smem = smem_floats(q, pb, n) * sizeof(float);
     static size_t granted = 48 * 1024;  // an instance keeps the largest opt-in it has had
@@ -326,18 +334,18 @@ int launch_typed(const void* x, const void* dt, const void* a, const void* bm, c
     ssd_chunk_scan<TX, TBC><<<grid, NT, smem, stream>>>(
         static_cast<const TX*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
         static_cast<const TBC*>(bm), static_cast<const TBC*>(cm), static_cast<TX*>(y),
-        static_cast<float*>(h), s, nh, p, pb, n, q);
+        static_cast<float*>(h), s, nh, ng, p, pb, n, q);
     return (int)cudaGetLastError();
 }
 
 template <typename TX>
 int launch_bc(const void* x, const void* dt, const void* a, const void* bm, const void* cm,
-              void* y, void* h, int bc_dtype, int bsz, int s, int nh, int p, int n, int q, int pb,
+              void* y, void* h, int bc_dtype, int bsz, int s, int nh, int ng, int p, int n, int q, int pb,
               cudaStream_t stream) {
     switch (bc_dtype) {
-        case 0: return launch_typed<TX, float>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, pb, stream);
+        case 0: return launch_typed<TX, float>(x, dt, a, bm, cm, y, h, bsz, s, nh, ng, p, n, q, pb, stream);
         case 1:
-            return launch_typed<TX, __nv_bfloat16>(x, dt, a, bm, cm, y, h, bsz, s, nh, p, n, q, pb,
+            return launch_typed<TX, __nv_bfloat16>(x, dt, a, bm, cm, y, h, bsz, s, nh, ng, p, n, q, pb,
                                                    stream);
         default: return (int)cudaErrorInvalidValue;
     }
@@ -382,16 +390,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     } while (!done);
 }
 
-// one box of a 3-D or 4-D tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                            int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
+// one box of a 4-D tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                             int c1, int c2, int c3) {
     asm volatile(
@@ -692,13 +691,14 @@ __device__ __forceinline__ void y_tile(uint32_t sb, const float* f, uint32_t hhi
 
 // One block per (head, batch row): P/64 consumer warpgroups, then the
 // producer warp. y is (B, S, H, P) contiguous, h_out (B, H, P, N) f32; dt is
-// read through its element strides.
+// read through its element strides; B and C are 4-D maps (N, G, S, B), the
+// block reading its head's group of ng.
 template <int Q, int P, int N>
 __global__ void __launch_bounds__(Layout<Q, P, N>::NT, 1)
     ssd_tc(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_b,
            const __grid_constant__ CUtensorMap map_c, const float* __restrict__ dt, long long dt_sb,
            long long dt_ss, long long dt_sh, const float* __restrict__ a, __nv_bfloat16* __restrict__ y,
-           float* __restrict__ h_out, int s, int nh) {
+           float* __restrict__ h_out, int s, int nh, int ng) {
     using L = Layout<Q, P, N>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem =
@@ -723,6 +723,7 @@ __global__ void __launch_bounds__(Layout<Q, P, N>::NT, 1)
     if (wg == L::NWG) {
         // ---- producer warp: TMA of x, B, C; dt and the in-chunk prefix ---------
         const int lane = threadIdx.x % 32;
+        const int grp = head / (nh / ng);  // the head's SSM group
         const float ah = a[head];
         const float* dtp = dt + b * dt_sb + head * dt_sh;
         for (int c = 0; c < nc; ++c) {
@@ -735,8 +736,8 @@ __global__ void __launch_bounds__(Layout<Q, P, N>::NT, 1)
                 for (int bx = 0; bx < P / 64; ++bx)
                     tma_load_4d(sb + L::X_OFF + bx * L::XB, &map_x, full(st), 64 * bx, head, c0, b);
                 for (int bx = 0; bx < N / 64; ++bx) {
-                    tma_load_3d(sb + L::B_OFF + bx * L::XB, &map_b, full(st), 64 * bx, c0, b);
-                    tma_load_3d(sb + L::C_OFF + bx * L::XB, &map_c, full(st), 64 * bx, c0, b);
+                    tma_load_4d(sb + L::B_OFF + bx * L::XB, &map_b, full(st), 64 * bx, grp, c0, b);
+                    tma_load_4d(sb + L::C_OFF + bx * L::XB, &map_c, full(st), 64 * bx, grp, c0, b);
                 }
             }
             float* f = reinterpret_cast<float*>(smem + st * L::STAGE + L::F_OFF);
@@ -844,8 +845,8 @@ __global__ void __launch_bounds__(128)
         mbar_expect_tx(bar, L::TX);
         tma_load_4d(base + L::X_OFF, &map_x, bar, 0, 0, 0, 0);
         for (int bx = 0; bx < 2; ++bx) {
-            tma_load_3d(base + L::B_OFF + bx * L::XB, &map_b, bar, 64 * bx, 0, 0);
-            tma_load_3d(base + L::C_OFF + bx * L::XB, &map_c, bar, 64 * bx, 0, 0);
+            tma_load_4d(base + L::B_OFF + bx * L::XB, &map_b, bar, 64 * bx, 0, 0, 0);
+            tma_load_4d(base + L::C_OFF + bx * L::XB, &map_c, bar, 64 * bx, 0, 0, 0);
         }
     }
     float* ones = reinterpret_cast<float*>(smem + L::F_OFF);
@@ -954,12 +955,13 @@ int map_x(CUtensorMap* m, const void* x, int bsz, int s, int nh, int p, int q, c
     return make_map(m, x, 4, dims, strides, box);
 }
 
-// B or C (B, S, N) through element strides (batch, row); Q rows of 64 columns a box
-int map_bc(CUtensorMap* m, const void* bc, int bsz, int s, int n, int q, const long long* st) {
-    const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)s, (cuuint64_t)bsz};
-    const cuuint64_t strides[2] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
-    const cuuint32_t box[3] = {64, (cuuint32_t)q, 1};
-    return make_map(m, bc, 3, dims, strides, box);
+// B or C (B, S, G, N) through element strides (batch, row, group); Q rows of
+// 64 columns of one group a box
+int map_bc(CUtensorMap* m, const void* bc, int bsz, int s, int ng, int n, int q, const long long* st) {
+    const cuuint64_t dims[4] = {(cuuint64_t)n, (cuuint64_t)ng, (cuuint64_t)s, (cuuint64_t)bsz};
+    const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)q, 1};
+    return make_map(m, bc, 4, dims, strides, box);
 }
 
 // Once per instance: opt in to the shared memory.
@@ -974,39 +976,40 @@ template <int Q, int P, int N> int prepare() {
     return state;
 }
 
-// strides: x (batch, row, head), B (batch, row), C (batch, row), dt (batch, row, head)
+// strides: x (batch, row, head), B (batch, row, group), C (batch, row, group),
+// dt (batch, row, head)
 template <int Q, int P, int N>
 int launch(const void* x, const void* dt, const void* a, const void* bm, const void* cm, void* y, void* h,
-           const long long* st, int bsz, int s, int nh, cudaStream_t stream) {
+           const long long* st, int bsz, int s, int nh, int ng, cudaStream_t stream) {
     int err = prepare<Q, P, N>();
     if (err) return err;
     CUtensorMap mx, mb, mc;
     if ((err = map_x(&mx, x, bsz, s, nh, P, Q, st))) return err;
-    if ((err = map_bc(&mb, bm, bsz, s, N, Q, st + 3))) return err;
-    if ((err = map_bc(&mc, cm, bsz, s, N, Q, st + 5))) return err;
+    if ((err = map_bc(&mb, bm, bsz, s, ng, N, Q, st + 3))) return err;
+    if ((err = map_bc(&mc, cm, bsz, s, ng, N, Q, st + 6))) return err;
     const dim3 grid(nh, bsz);
     ssd_tc<Q, P, N><<<grid, Layout<Q, P, N>::NT, Layout<Q, P, N>::ALLOC, stream>>>(
-        mx, mb, mc, static_cast<const float*>(dt), st[7], st[8], st[9], static_cast<const float*>(a),
-        static_cast<__nv_bfloat16*>(y), static_cast<float*>(h), s, nh);
+        mx, mb, mc, static_cast<const float*>(dt), st[9], st[10], st[11], static_cast<const float*>(a),
+        static_cast<__nv_bfloat16*>(y), static_cast<float*>(h), s, nh, ng);
     return (int)cudaGetLastError();
 }
 
 template <int Q, int P>
 int launch_n(int n, const void* x, const void* dt, const void* a, const void* bm, const void* cm, void* y, void* h,
-             const long long* st, int bsz, int s, int nh, cudaStream_t stream) {
+             const long long* st, int bsz, int s, int nh, int ng, cudaStream_t stream) {
     switch (n) {
-        case 64: return launch<Q, P, 64>(x, dt, a, bm, cm, y, h, st, bsz, s, nh, stream);
-        case 128: return launch<Q, P, 128>(x, dt, a, bm, cm, y, h, st, bsz, s, nh, stream);
+        case 64: return launch<Q, P, 64>(x, dt, a, bm, cm, y, h, st, bsz, s, nh, ng, stream);
+        case 128: return launch<Q, P, 128>(x, dt, a, bm, cm, y, h, st, bsz, s, nh, ng, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 template <int Q>
 int launch_pn(int p, int n, const void* x, const void* dt, const void* a, const void* bm, const void* cm, void* y,
-              void* h, const long long* st, int bsz, int s, int nh, cudaStream_t stream) {
+              void* h, const long long* st, int bsz, int s, int nh, int ng, cudaStream_t stream) {
     switch (p) {
-        case 64: return launch_n<Q, 64>(n, x, dt, a, bm, cm, y, h, st, bsz, s, nh, stream);
-        case 128: return launch_n<Q, 128>(n, x, dt, a, bm, cm, y, h, st, bsz, s, nh, stream);
+        case 64: return launch_n<Q, 64>(n, x, dt, a, bm, cm, y, h, st, bsz, s, nh, ng, stream);
+        case 128: return launch_n<Q, 128>(n, x, dt, a, bm, cm, y, h, st, bsz, s, nh, ng, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -1021,12 +1024,12 @@ int tile(const void* c, const void* bm, const void* x, const void* h, float* s_o
         if (err != cudaSuccess) return (int)err;
         state = 0;
     }
-    const long long st_x[3] = {64 * 64, 64, 64}, st_bc[2] = {64 * 128, 128};
+    const long long st_x[3] = {64 * 64, 64, 64}, st_bc[3] = {64 * 128, 128, 128};
     CUtensorMap mx, mb, mc;
     int err;
     if ((err = map_x(&mx, x, 1, 64, 1, 64, 64, st_x))) return err;
-    if ((err = map_bc(&mb, bm, 1, 64, 128, 64, st_bc))) return err;
-    if ((err = map_bc(&mc, c, 1, 64, 128, 64, st_bc))) return err;
+    if ((err = map_bc(&mb, bm, 1, 64, 1, 128, 64, st_bc))) return err;
+    if ((err = map_bc(&mc, c, 1, 64, 1, 128, 64, st_bc))) return err;
     ssd_wgmma_tile<<<1, 128, L::ALLOC, stream>>>(mx, mb, mc, static_cast<const float*>(h), s_out, yo_out, yd_out,
                                                  ds_out);
     return (int)cudaGetLastError();
@@ -1040,38 +1043,39 @@ int tile(const void* c, const void* bm, const void* x, const void* h, float* s_o
 extern "C" size_t ssd_smem_bytes(int q, int p, int n) { return cc::smem_floats(q, p, n) * sizeof(float); }
 
 // The CUDA-core route. x_dtype, bc_dtype: 0 float32, 1 bfloat16; every
-// tensor contiguous. pb: the head-dim columns one block takes (1 <= pb <=
-// p; ceil(p / pb) blocks per (head, batch row), each sized for pb).
-// Returns cudaGetLastError() of the launch (0 on success); never
-// synchronises.
+// tensor contiguous, B and C (B, S, ng, N) with ng dividing nh. pb: the
+// head-dim columns one block takes (1 <= pb <= p; ceil(p / pb) blocks per
+// (head, batch row), each sized for pb). Returns cudaGetLastError() of the
+// launch (0 on success); never synchronises.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* a, const void* bm,
                           const void* cm, void* y, void* h, int x_dtype, int bc_dtype, int bsz,
-                          int s, int nh, int p, int n, int q, int pb, void* stream) {
+                          int s, int nh, int ng, int p, int n, int q, int pb, void* stream) {
     if (q <= 0 || q > cc::MAX_DIM || p <= 0 || p > cc::MAX_DIM || n <= 0 || n > cc::MAX_DIM || s % q ||
-        pb <= 0 || pb > p)
+        pb <= 0 || pb > p || ng <= 0 || nh % ng)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (x_dtype) {
-        case 0: return cc::launch_bc<float>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, pb, st);
+        case 0: return cc::launch_bc<float>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, ng, p, n, q, pb, st);
         case 1:
-            return cc::launch_bc<__nv_bfloat16>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, p, n, q, pb,
+            return cc::launch_bc<__nv_bfloat16>(x, dt, a, bm, cm, y, h, bc_dtype, bsz, s, nh, ng, p, n, q, pb,
                                                 st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 // The tensor-core route: x, B, C bf16 and q, p, n each 64 or 128, read
-// through element strides (10: x batch, row, head; B batch, row; C batch,
-// row; dt batch, row, head), the last dim of x, B and C contiguous; y
-// (B, S, H, P) bf16 and h (B, H, P, N) f32 contiguous. Returns as above.
+// through element strides (12: x batch, row, head; B batch, row, group; C
+// batch, row, group; dt batch, row, head), the last dim of x, B and C
+// contiguous, B and C (B, S, ng, N) with ng dividing nh; y (B, S, H, P)
+// bf16 and h (B, H, P, N) f32 contiguous. Returns as above.
 extern "C" int ssd_tc_launch(const void* x, const void* dt, const void* a, const void* bm, const void* cm, void* y,
-                             void* h, const long long* strides, int bsz, int s, int nh, int p, int n, int q,
+                             void* h, const long long* strides, int bsz, int s, int nh, int ng, int p, int n, int q,
                              void* stream) {
-    if (s % q) return (int)cudaErrorInvalidValue;
+    if (s % q || ng <= 0 || nh % ng) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (q) {
-        case 64: return tc::launch_pn<64>(p, n, x, dt, a, bm, cm, y, h, strides, bsz, s, nh, st);
-        case 128: return tc::launch_pn<128>(p, n, x, dt, a, bm, cm, y, h, strides, bsz, s, nh, st);
+        case 64: return tc::launch_pn<64>(p, n, x, dt, a, bm, cm, y, h, strides, bsz, s, nh, ng, st);
+        case 128: return tc::launch_pn<128>(p, n, x, dt, a, bm, cm, y, h, strides, bsz, s, nh, ng, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

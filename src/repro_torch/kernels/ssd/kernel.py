@@ -7,6 +7,10 @@ library with plain C entry points, at first use, into ``build/kernels/``
 (``kernels._build``), and bound with ``ctypes``. Nothing here runs at
 import: this module imports cleanly on a machine with no CUDA toolkit.
 
+B and C come as (B, S, N), one SSM group for every head, or as (B, S, G, N),
+head h reading group h // (H / G); either way one launch a call (the
+kernels take every B and C as (B, S, G, N), G = 1 a view of the first).
+
 The source has two routes, and :func:`route` picks one from the dtypes and
 the sizes alone (a fixed rule, not a fallback: a failed build or launch of
 either raises). Both run one block per (head, batch row) that loops over
@@ -80,9 +84,9 @@ def cc_p_block(chunk: int, p: int, n: int) -> int:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-    lib.ssd_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+    lib.ssd_launch.argtypes = [vp] * 7 + [ci] * 10 + [vp]
     lib.ssd_launch.restype = ci
-    lib.ssd_tc_launch.argtypes = [vp] * 7 + [ll] + [ci] * 6 + [vp]
+    lib.ssd_tc_launch.argtypes = [vp] * 7 + [ll] + [ci] * 7 + [vp]
     lib.ssd_tc_launch.restype = ci
     lib.ssd_wgmma_tile.argtypes = [vp] * 9
     lib.ssd_wgmma_tile.restype = ci
@@ -106,7 +110,7 @@ def build() -> Path:
 
 def kernel_reads(t: torch.Tensor) -> bool:
     """Whether the tensor-core route reads this bf16 tensor (x (B, S, H, P),
-    or B or C (B, S, N)) in place: the last dim contiguous, the base and
+    or B or C (B, S, N) or (B, S, G, N)) in place: the last dim contiguous, the base and
     every other stride of a dim of size > 1 a positive multiple of 16 bytes
     (TMA's rule). The model's slices of one projection qualify."""
     item = t.element_size()
@@ -131,8 +135,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
              c_mat: torch.Tensor, chunk: int, p_block: Optional[int] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on the current stream: x (B, S, H, P) float32 or
-    bfloat16, dt (B, S, H) and a (H,) float32, b_mat and c_mat (B, S, N)
-    float32 or bfloat16, on one CUDA device; ``chunk`` ≤ 128 divides S, and
+    bfloat16, dt (B, S, H) and a (H,) float32, b_mat and c_mat (B, S, N) or
+    (B, S, G, N) with G dividing H, float32 or bfloat16, on one CUDA device; ``chunk`` ≤ 128 divides S, and
     P, N ≤ 128. On the tensor-core route (:func:`route`) x, B, C and dt may
     be strided views (:func:`kernel_reads`); on the CUDA-core route every
     input is contiguous, and ``p_block`` (default :func:`cc_p_block`) sets
@@ -142,9 +146,13 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     if x.dim() != 4:
         raise ValueError(f"ssd_cuda: x must be (B, S, H, P), got {tuple(x.shape)}")
     bsz, s, h, p = x.shape
-    n = b_mat.shape[-1]
+    if b_mat.dim() == 3:  # one group: the (B, S, 1, N) view
+        b_mat, c_mat = b_mat.unsqueeze(2), c_mat.unsqueeze(2)
+    g, n = b_mat.shape[2], b_mat.shape[-1]
+    if g <= 0 or h % g:
+        raise ValueError(f"ssd_cuda: {g} SSM groups must divide the {h} heads")
     which = route(x.dtype, b_mat.dtype, chunk, p, n)
-    want = {"dt": (bsz, s, h), "a": (h,), "b_mat": (bsz, s, n), "c_mat": (bsz, s, n)}
+    want = {"dt": (bsz, s, h), "a": (h,), "b_mat": (bsz, s, g, n), "c_mat": (bsz, s, g, n)}
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b_mat", b_mat), ("c_mat", c_mat)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -183,11 +191,11 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
             y.data_ptr(), h_final.data_ptr())
     if which == "tensor_cores":
-        strides = (ctypes.c_longlong * 10)(*(_strides(x) + _strides(b_mat) + _strides(c_mat)
+        strides = (ctypes.c_longlong * 12)(*(_strides(x) + _strides(b_mat) + _strides(c_mat)
                                              + tuple(dt.stride())))
-        err = lib.ssd_tc_launch(*ptrs, strides, bsz, s, h, p, n, chunk, stream)
+        err = lib.ssd_tc_launch(*ptrs, strides, bsz, s, h, g, p, n, chunk, stream)
     else:
-        err = lib.ssd_launch(*ptrs, DTYPES[x.dtype], DTYPES[b_mat.dtype], bsz, s, h, p, n, chunk, pb,
+        err = lib.ssd_launch(*ptrs, DTYPES[x.dtype], DTYPES[b_mat.dtype], bsz, s, h, g, p, n, chunk, pb,
                              stream)
     if err != 0:
         smem = f", {lib.ssd_smem_bytes(chunk, pb, n)} bytes of shared memory" if which == "cuda_cores" else ""

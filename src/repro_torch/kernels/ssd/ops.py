@@ -18,7 +18,9 @@ A DTensor x (a step on a mesh) runs the same wrapper on each device's
 shards (``sharding.act.on_shards``), before the kernel/plain choice: the
 sequence, P and N, which the kernel scans and reduces, are whole on every
 device; the batch rows and the heads keep their sharding (x, dt and a
-sharded alike on the heads, B and C whole over them).
+sharded alike on the heads, B and C whole over them). Grouped B and C
+(B, S, G, N) take a batch split only: a head split of a grouped call
+raises.
 
 The kernel has no backward: under autograd (grad enabled and an input that
 needs a gradient) the call raises ``NotImplementedError`` rather than
@@ -45,8 +47,8 @@ def ssd(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)
     a: torch.Tensor,  # (H,)
-    b_mat: torch.Tensor,  # (B, S, N)
-    c_mat: torch.Tensor,  # (B, S, N)
+    b_mat: torch.Tensor,  # (B, S, N), or (B, S, G, N): head h reads group h // (H / G)
+    c_mat: torch.Tensor,  # as b_mat
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     if isinstance(x, DTensor):
@@ -74,7 +76,10 @@ def on_mesh(fn, x: DTensor, dt, a, b_mat, c_mat):
     ``ssd_reference``) on each device's shards: batch rows and heads as
     sharded; sequence, P and N whole. Per mesh dim: x's batch split splits
     dt, B, C, y and h alike; x's head split splits dt and a alike (h on its
-    dim 1) and leaves B and C whole."""
+    dim 1) and leaves B and C whole, which a grouped B and C (B, S, G, N)
+    cannot take: their groups would have to split with the heads."""
+    if b_mat.dim() == 4 and Shard(2) in x.placements:
+        raise NotImplementedError("ssd: grouped B and C (B, S, G, N) with the heads split over a mesh")
     whole = Replicate()
     rows = {Shard(0): (Shard(0), Shard(0), whole, Shard(0), Shard(0)),  # x, dt, a, B/C, h
             Shard(2): (Shard(2), Shard(2), Shard(0), whole, Shard(1))}

@@ -12,6 +12,11 @@ reference scans (``lax.scan``), these loop in Python over chunks or tokens.
 
 All decay math runs in f32; A is negative and dt positive, so every exponent
 is ≤ 0 (masked differences are zeroed before ``exp``).
+
+B and C come as (B, S, N), one SSM group shared by every head, or as
+(B, S, G, N), G groups: head h reads group h // (H / G) (the heads of a
+group are consecutive). A grouped call is the one-group computation on
+each group's heads, concatenated over the heads.
 """
 from __future__ import annotations
 
@@ -26,12 +31,14 @@ def ssd_reference(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H), already softplus'd, > 0
     a: torch.Tensor,  # (H,), negative
-    b_mat: torch.Tensor,  # (B, S, N), one SSM group shared by the heads
-    c_mat: torch.Tensor,  # (B, S, N)
+    b_mat: torch.Tensor,  # (B, S, N), one SSM group shared by the heads, or (B, S, G, N)
+    c_mat: torch.Tensor,  # as b_mat
     chunk: int = 64,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) f32)."""
+    if b_mat.dim() == 4:
+        return _per_group(ssd_reference, x, dt, a, b_mat, c_mat, h0, chunk=chunk)
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     if chunk <= 0 or s % chunk:
@@ -74,16 +81,38 @@ def ssd_reference(
     return y, h_state
 
 
+def _per_group(fn, x, dt, a, b_mat, c_mat, h0, **kw):
+    """``fn`` on each group's heads and its (B, S, N) B and C, the outputs
+    concatenated over the heads."""
+    h, g = x.shape[2], b_mat.shape[2]
+    if g <= 0 or h % g or c_mat.shape != b_mat.shape:
+        raise ValueError(f"{h} heads in {g} groups, B {tuple(b_mat.shape)}, C {tuple(c_mat.shape)}")
+    hg = h // g
+    outs = [fn(x[:, :, i * hg:(i + 1) * hg], dt[:, :, i * hg:(i + 1) * hg], a[i * hg:(i + 1) * hg],
+               b_mat[:, :, i], c_mat[:, :, i], h0=None if h0 is None else h0[:, i * hg:(i + 1) * hg], **kw)
+            for i in range(g)]
+    return torch.cat([y for y, _ in outs], 2), torch.cat([hf for _, hf in outs], 1)
+
+
 def ssd_decode_step(
     h: torch.Tensor,  # (B, H, P, N) f32 state
     x: torch.Tensor,  # (B, H, P)
     dt: torch.Tensor,  # (B, H), softplus'd
     a: torch.Tensor,  # (H,)
-    b_vec: torch.Tensor,  # (B, N)
-    c_vec: torch.Tensor,  # (B, N)
+    b_vec: torch.Tensor,  # (B, N), or (B, G, N) for G groups
+    c_vec: torch.Tensor,  # as b_vec
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrent update (the serving path). Returns (y (B, H, P)
     in x's dtype, the new state f32)."""
+    # each head reads its group's B and C; one group keeps the formula below,
+    # since this one sums y in another order and moves its bits
+    if b_vec.dim() == 3:
+        hg = x.shape[1] // b_vec.shape[1]
+        b_h, c_h = (t.to(_F32).repeat_interleave(hg, 1) for t in (b_vec, c_vec))  # (B, H, N)
+        dtf = dt.to(_F32)
+        h_new = h * torch.exp(dtf * a.to(_F32))[:, :, None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf, x.to(_F32), b_h)
+        return torch.einsum("bhpn,bhn->bhp", h_new, c_h).to(x.dtype), h_new
     dtf = dt.to(_F32)
     da = torch.exp(dtf * a.to(_F32))  # (B, H)
     upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x.to(_F32), b_vec.to(_F32))
@@ -101,7 +130,7 @@ def ssd_naive(
     h0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-by-token recurrence: the ground truth the chunked form must
-    match."""
+    match (one group or G, as :func:`ssd_reference`)."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     h_state = torch.zeros((bsz, h, p, n), dtype=_F32, device=x.device) if h0 is None else h0.to(_F32)

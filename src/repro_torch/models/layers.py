@@ -209,8 +209,13 @@ def _decode_on_shards(q, k_cache: DTensor, v_cache: DTensor, cur_index: int) -> 
 # MLPs
 # ---------------------------------------------------------------------------
 def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """SwiGLU / GeGLU gated MLP, or plain GELU FFN: (B, S, D) → (B, S, D).
+    """SwiGLU / GeGLU gated MLP, or plain GELU FFN, or the non-gated relu²
+    MLP ``down(relu(x up)²)`` (``wi_up``, ``wo``): (B, S, D) → (B, S, D).
     The activation runs in f32 and is cast back to x's dtype."""
+    if kind == "relu2":
+        up = _mm("bsd,df->bsf", x, use_weight(params["wi_up"]))
+        act = F.relu(up.to(_F32)).square().to(x.dtype)
+        return _mm("bsf,fd->bsd", act, use_weight(params["wo"]))
     gate = _mm("bsd,df->bsf", x, use_weight(params["wi_gate"]))
     if kind == "swiglu":
         act = F.silu(gate.to(_F32)).to(x.dtype)

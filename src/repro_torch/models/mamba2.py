@@ -9,6 +9,16 @@ CUDA kernel on the card, the plain version elsewhere) and the gated norm as
 ``norm_fn`` (``kernels.rmsnorm`` or ``layers.rms_norm``); the decode path
 keeps a recurrent (conv window, SSM state) cache per layer, O(1) per token,
 and updates it in place.
+
+With ``cfg.ssm_groups`` G > 1 (Nemotron-H's layout) in_proj emits G B's and
+G C's of width N, head h reads group h // (H / G), and the gated norm runs
+over each group's d_inner / G channels: ``norm_fn`` normalises each group
+with a unit scale, and the group's (1 + w) multiplies after, in y's dtype.
+G = 1 is the reference's block, unchanged.
+
+Spans (``runtime.trace``): ``mamba/proj`` around in_proj, the conv and the
+SiLU, and again around the gate, the gated norm and out_proj (two
+intervals a layer under one name); ``mamba/ssd`` around the SSD call.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd.ref import ssd_decode_step, ssd_reference
+from ..runtime import trace
 from ..sharding.act import constrain, on_shards, use_weight
 from .layers import _mm, rms_norm
 
@@ -31,7 +42,7 @@ def _dims(cfg: ModelConfig):
     d_in = cfg.ssm_d_inner
     nh = cfg.ssm_n_heads
     n = cfg.ssm_state
-    conv_dim = d_in + 2 * n  # x, B, C all pass through the conv
+    conv_dim = d_in + 2 * cfg.ssm_groups * n  # x, B, C all pass through the conv
     return d_in, nh, n, conv_dim
 
 
@@ -44,7 +55,7 @@ def mamba2_init(normal: Callable, cfg: ModelConfig, dtype, device) -> dict:
     d_in, nh, n, conv_dim = _dims(cfg)
     # in_proj emits [z (d_in), xBC (conv_dim), dt (nh)]
     return {
-        "in_proj": normal((d, 2 * d_in + 2 * n + nh), 1.0 / math.sqrt(d)),
+        "in_proj": normal((d, d_in + conv_dim + nh), 1.0 / math.sqrt(d)),
         "conv_w": normal((cfg.ssm_conv_width, conv_dim), 0.1),
         "conv_b": torch.zeros(conv_dim, dtype=dtype, device=device),
         "a_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=_F32, device=device)),
@@ -97,13 +108,37 @@ def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + conv_dim], zxbcdt[..., d_in + conv_dim:]
 
 
+def _bc(cfg: ModelConfig, xbc: torch.Tensor):
+    """B and C from the conv's output (..., conv_dim): (..., N) each where
+    one group serves every head, else (..., G, N)."""
+    d_in, n, g = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_groups
+    b_mat, c_mat = xbc[..., d_in:d_in + g * n], xbc[..., d_in + g * n:]
+    if g == 1:
+        return b_mat, c_mat
+    if isinstance(xbc, DTensor):
+        raise NotImplementedError(f"Mamba-2 with {g} SSM groups on a mesh")
+    return b_mat.unflatten(-1, (g, n)), c_mat.unflatten(-1, (g, n))
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, norm_fn: Callable) -> torch.Tensor:
+    """RMSNorm of the gated y over the whole width (one group) or over each
+    group's channels (module docstring)."""
+    g = cfg.ssm_groups
+    if g == 1:
+        return norm_fn(y, w, cfg.norm_eps)
+    yg = y.unflatten(-1, (g, -1))
+    unit = torch.zeros(yg.shape[-1], dtype=w.dtype, device=w.device)
+    scale = (1.0 + w.to(_F32)).reshape(g, -1).to(y.dtype)
+    return (norm_fn(yg, unit, cfg.norm_eps) * scale).flatten(-2)
+
+
 def _gated_out(params: dict, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
                cfg: ModelConfig, norm_fn: Callable) -> torch.Tensor:
     """D skip, gate by SiLU(z), RMSNorm, out_proj: y and xs (B, S, H, P) or
     (B, H, P) → (B, S or 1, D)."""
     y = y + params["d_skip"][:, None] * xs  # the skip broadcasts over (H, P)
     y = y.reshape(y.shape[0], -1, cfg.ssm_d_inner)
-    y = norm_fn(y * F.silu(z.to(_F32)).to(y.dtype), params["norm"], cfg.norm_eps)
+    y = _gated_norm(y * F.silu(z.to(_F32)).to(y.dtype), params["norm"], cfg, norm_fn)
     return _mm("bse,ed->bsd", y, use_weight(params["out_proj"]))
 
 
@@ -126,19 +161,21 @@ def mamba2_prefill(
     the left, as the causal conv pads it."""
     d_in, nh, n, conv_dim = _dims(cfg)
     b, s, _ = x.shape
-    zxbcdt = _mm("bsd,de->bse", x, use_weight(params["in_proj"]))
-    z, xbc_raw, dt = _split(cfg, zxbcdt)
-    xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]).to(_F32)).to(x.dtype)
-    xs = xbc[..., :d_in].reshape(b, s, nh, cfg.ssm_head_dim)
-    b_mat = xbc[..., d_in:d_in + n]
-    c_mat = xbc[..., d_in + n:]
-    dt = _softplus(dt.to(_F32) + params["dt_bias"])  # (B, S, nh)
-    a = -torch.exp(params["a_log"])  # (nh,) < 0
+    with trace.span("mamba/proj"):
+        zxbcdt = _mm("bsd,de->bse", x, use_weight(params["in_proj"]))
+        z, xbc_raw, dt = _split(cfg, zxbcdt)
+        xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]).to(_F32)).to(x.dtype)
+        xs = xbc[..., :d_in].reshape(b, s, nh, cfg.ssm_head_dim)
+        b_mat, c_mat = _bc(cfg, xbc)
+        dt = _softplus(dt.to(_F32) + params["dt_bias"])  # (B, S, nh)
+        a = -torch.exp(params["a_log"])  # (nh,) < 0
     # on a mesh the SSD's heads split over the model axis (the ssm_heads
     # rule), so the model-axis devices share the scan
     xs, dt = constrain(xs, ("batch", "seq", "ssm_heads", None)), constrain(dt, ("batch", "seq", "ssm_heads"))
-    y, h_final = (ssd_fn or ssd_reference)(xs, dt, a, b_mat, c_mat)
-    out = _gated_out(params, y, xs, z, cfg, norm_fn)
+    with trace.span("mamba/ssd"):
+        y, h_final = (ssd_fn or ssd_reference)(xs, dt, a, b_mat, c_mat)
+    with trace.span("mamba/proj"):
+        out = _gated_out(params, y, xs, z, cfg, norm_fn)
     w = cfg.ssm_conv_width
     window = xbc_raw if s >= w - 1 else F.pad(xbc_raw, (0, 0, w - 1 - s, 0))
     conv = window[:, window.shape[1] - (w - 1):].contiguous()  # a copy, not a view of zxbcdt
@@ -189,8 +226,7 @@ def mamba2_decode(
     xbc_t = F.silu(conv_out.to(_F32)).to(x.dtype)  # (B, conv_dim)
 
     xs = xbc_t[:, :d_in].reshape(b, nh, cfg.ssm_head_dim)
-    b_vec = xbc_t[:, d_in:d_in + n]
-    c_vec = xbc_t[:, d_in + n:]
+    b_vec, c_vec = _bc(cfg, xbc_t)
     dt_t = _softplus(dt[:, 0].to(_F32) + params["dt_bias"])  # (B, nh)
     a = -torch.exp(params["a_log"])
 

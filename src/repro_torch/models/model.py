@@ -18,6 +18,9 @@ reference stacks each cycle position over cycles). Everything runs on the
 device of the parameters; the constructors default to CUDA and raise
 without it. Every block kind of the reference is ported: attention and
 Mamba-2 sequence mixers, dense and MoE channel mixers (``models.moe``).
+A position whose sequence mixer is ``"none"`` (Nemotron-H's MoE layers)
+is its channel mixer alone: no ``norm1``, no ``mixer``, an empty decode
+cache.
 
 Two ``RunFlags`` switches send the stack through the port's CUDA kernels
 (their plain versions on CPU tensors): ``ssd_impl="kernel"`` runs every
@@ -250,7 +253,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
     d, h, kh, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     layers = []
     for i in range(cfg.n_layers):
-        if cfg.block_kinds[i % cfg.cycle_len] == "attn":
+        kind = cfg.block_kinds[i % cfg.cycle_len]
+        if kind == "none":
+            mixer = None
+        elif kind == "attn":
             mixer = {
                 "wq": normal((d, h * dh), 1.0 / math.sqrt(d)),
                 "wk": normal((d, kh * dh), 1.0 / math.sqrt(d)),
@@ -261,8 +267,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32, device=Non
                 mixer["q_norm"], mixer["k_norm"] = zeros(dh), zeros(dh)
         else:
             mixer = mamba2_init(normal, cfg, dtype, dev)
-        layer = {"norm1": zeros(d), "mixer": mixer}
+        layer = {} if mixer is None else {"norm1": zeros(d), "mixer": mixer}
         mk = cfg.mlp_kind_at(i % cfg.cycle_len)
+        if mk == "dense" and cfg.mlp_kind == "relu2":
+            raise NotImplementedError(f"a dense relu2 layer ({cfg.name}): relu2 is an expert kind only")
         if mk == "dense":
             mlp = {"wi_gate": normal((d, ff), 1.0 / math.sqrt(d)),
                    "wo": normal((ff, d), 1.0 / math.sqrt(ff))}
@@ -433,6 +441,9 @@ def _block_seq(pos: int, p, x, cfg: ModelConfig, flags: RunFlags, positions, mro
     ``mamba2_prefill``, which takes the final SSM state from the layer's one
     SSD call (the reference's ``_mamba_prefill_cache`` recomputes it)."""
     norm = norm_fn(flags)
+    if cfg.block_kinds[pos] == "none":
+        x, aux = _mlp(pos, p, x, cfg, flags, norm, sequence=True)
+        return x, ({} if want_cache else None), aux
     # the block input at full sequence: the residual stream may be
     # sequence-sharded between blocks (the seq_res rule)
     normed = constrain(norm(x, p["norm1"], cfg.norm_eps), ("batch", None, "act_embed"))
@@ -450,6 +461,8 @@ def _block_decode(pos: int, p, x, cfg: ModelConfig, cache: dict, cur_index: int,
     """One layer on one token; the MoE aux loss is dropped, as in the
     reference."""
     norm = norm_fn(flags)
+    if cfg.block_kinds[pos] == "none":
+        return _mlp(pos, p, x, cfg, flags, norm, sequence=False)[0]
     h = norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_kinds[pos] == "attn":
         h = _attn_decode(p["mixer"], h, cfg, cache, cur_index, mrope_positions, norm)
@@ -569,14 +582,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat1
     ({"k", "v"} (B, cache_len, KH, Dh) in ``dtype``; ``kv_quant='int8'``
     stores int8 with a per-(token, head) absmax scale in bf16); a Mamba-2
     layer holds {"conv": (B, W-1, conv_dim) in ``dtype``, "ssm": (B, H, P,
-    N) f32}, whatever ``cache_len``."""
+    N) f32}, whatever ``cache_len``; a layer with no sequence mixer holds
+    nothing ({})."""
     if kv_quant not in ("none", "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     dev = resolve_device(device)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     caches = []
     for i in range(cfg.n_layers):
-        if cfg.block_kinds[i % cfg.cycle_len] != "attn":
+        kind = cfg.block_kinds[i % cfg.cycle_len]
+        if kind == "none":
+            caches.append({})
+        elif kind != "attn":
             caches.append(mamba2_cache_init(cfg, batch, dtype, dev))
         elif kv_quant == "int8":
             caches.append({

@@ -16,6 +16,18 @@ The expert MLPs are three batched products over the (E, C, D) dispatch
 buffer, the reference's grouped einsums (outside any Pallas kernel there),
 so they run as ``torch.bmm``.
 
+Two further kinds, the port's own (Nemotron-H's MoE), are chosen by the
+configuration: ``moe_router="sigmoid"`` picks each token's top k by sigmoid
+score plus a learned correction bias (``router_bias``, f32), its gates the
+raw scores renormalised over the k and times ``moe_routed_scale``;
+``mlp_kind="relu2"`` makes each expert ``down(relu(up x)²)``, two batched
+products; ``moe_shared_d_ff`` adds a shared expert (``shared``, a dense
+relu² MLP of that width; relu² only) on every token, under the span
+``moe/shared``. The defaults
+(softmax, SwiGLU/GeGLU, no shared expert) run as before, with no added
+device work. The mesh paths take the defaults only and raise on the
+others.
+
 Under a mesh context (``sharding.act.activation_rules``) the layer keeps
 the reference's semantics, global capacity included, and each device works
 on its own tokens and its own experts (:func:`_on_mesh`): only the flat
@@ -44,7 +56,7 @@ from ..kernels.moe_positions import moe_positions
 from ..runtime import trace
 from ..sharding.act import constrain, current_context, flatten, gathered, replicated, shard_index, use_weight
 from ..sharding.rules import axes, placements, resolve
-from .layers import _mm
+from .layers import _mm, mlp_apply
 
 _F32 = torch.float32
 
@@ -58,15 +70,25 @@ def moe_init(normal: Callable, cfg: ModelConfig, dtype, device) -> dict:
     argument (``dtype`` here). The router is (D, E) and f32 whatever
     ``dtype`` is; the experts are ``wi_gate``/``wi_up`` (E, D, F) × 1/√D and
     ``wo`` (E, F, D) × 1/√F, one tensor drawn at a time."""
-    del device  # drawn where ``normal`` draws
     d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {
-        "router": normal((d, e), s_in, dt=_F32),
-        "wi_gate": normal((e, d, f), s_in, dt=dtype),
-        "wi_up": normal((e, d, f), s_in, dt=dtype),
-        "wo": normal((e, f, d), s_out, dt=dtype),
-    }
+    if cfg.mlp_kind == "relu2":  # non-gated: up and down only
+        out = {"router": normal((d, e), s_in, dt=_F32),
+               "wi_up": normal((e, d, f), s_in, dt=dtype),
+               "wo": normal((e, f, d), s_out, dt=dtype)}
+    else:
+        out = {"router": normal((d, e), s_in, dt=_F32),
+               "wi_gate": normal((e, d, f), s_in, dt=dtype),
+               "wi_up": normal((e, d, f), s_in, dt=dtype),
+               "wo": normal((e, f, d), s_out, dt=dtype)}
+    if cfg.moe_router == "sigmoid":
+        out["router_bias"] = torch.zeros(e, dtype=_F32, device=device)
+    if cfg.moe_shared_d_ff:
+        if cfg.mlp_kind != "relu2":
+            raise NotImplementedError(f"a shared expert of kind {cfg.mlp_kind!r} ({cfg.name}): relu2 only")
+        fs = cfg.moe_shared_d_ff
+        out["shared"] = {"wi_up": normal((d, fs), s_in, dt=dtype), "wo": normal((fs, d), 1.0 / math.sqrt(fs), dt=dtype)}
+    return out
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -82,8 +104,9 @@ def record_routing() -> Iterator[List[dict]]:
     ``{"expert_idx": (T, k), "keep": (T, k) bool, "gap": (T,)}`` on the
     input's device, to the list it yields, in call order (a stack's layers
     in order). ``gap`` is each token's margin at the top-k boundary, the
-    log-probability of its k-th expert less that of its (k+1)-th (inf where
-    k = E): how far the router is from a near-tie."""
+    log-probability of its k-th expert less that of its (k+1)-th (under the
+    sigmoid router: its k-th choice score, sigmoid plus bias, less its
+    (k+1)-th; inf where k = E): how far the router is from a near-tie."""
     global _RECORD
     outer, _RECORD = _RECORD, []
     try:
@@ -92,9 +115,12 @@ def record_routing() -> Iterator[List[dict]]:
         _RECORD = outer
 
 
-def _record(expert_idx: torch.Tensor, keep: torch.Tensor, probs: torch.Tensor, k: int) -> None:
-    """One call's entry of :func:`record_routing`."""
-    top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1).values.log()
+def _record(expert_idx: torch.Tensor, keep: torch.Tensor, probs: torch.Tensor, k: int, log: bool = True) -> None:
+    """One call's entry of :func:`record_routing`; ``probs``: what the
+    choice ranks (``log``: the softmax probabilities, compared as
+    log-probabilities)."""
+    top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1).values
+    top = top.log() if log else top
     gap = top[:, k - 1] - top[:, k] if k < probs.shape[-1] else torch.full_like(top[:, 0], math.inf)
     _RECORD.append({"expert_idx": expert_idx, "keep": keep, "gap": gap})
 
@@ -112,6 +138,29 @@ def route(xf: torch.Tensor, router: torch.Tensor, k: int):
     return probs, gate_vals, expert_idx
 
 
+def route_sigmoid(xf: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, k: int, scale: float):
+    """(scores (T, E), gates (T, k), expert indices (T, k), choice (T, E)):
+    the f32 router's sigmoid scores; the k largest of score + ``bias`` (the
+    choice), in descending order; their raw scores renormalised over the k
+    and times ``scale`` as the gates."""
+    scores = torch.sigmoid(torch.matmul(xf.to(_F32), router.to(_F32)))
+    choice = scores + bias.to(_F32)
+    expert_idx = torch.topk(choice, k, dim=-1).indices
+    gate_vals = scores.gather(-1, expert_idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-20) * scale
+    return scores, gate_vals, expert_idx, choice
+
+
+def mesh_kinds_unsupported(cfg: ModelConfig) -> None:
+    """Raise where the configuration asks the mesh paths for what they do
+    not carry: the sigmoid router, relu² experts or a shared expert."""
+    off = [name for name, on in (("moe_router='sigmoid'", cfg.moe_router != "softmax"),
+                                 ("mlp_kind='relu2'", cfg.mlp_kind == "relu2"),
+                                 ("moe_shared_d_ff", cfg.moe_shared_d_ff > 0)) if on]
+    if off:
+        raise NotImplementedError(f"the MoE mesh paths do not carry {', '.join(off)} ({cfg.name})")
+
+
 def positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
     """Each flat assignment's place in its expert's queue, token-major:
     earlier tokens win capacity. The integers of the reference's one-hot
@@ -122,7 +171,12 @@ def positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
 
 def experts(params: dict, grouped: torch.Tensor, mlp_kind: str) -> torch.Tensor:
     """The expert MLPs on the (E, C, D) dispatch buffer: three grouped
-    products, the activation in f32 cast back to the buffer's dtype."""
+    products (relu²: two), the activation in f32 cast back to the buffer's
+    dtype."""
+    if mlp_kind == "relu2":
+        up = _mm("ecd,edf->ecf", grouped, use_weight(params["wi_up"]))
+        act = F.relu(up.to(_F32)).square().to(grouped.dtype)
+        return _mm("ecf,efd->ecd", act, use_weight(params["wo"]))
     gate = _mm("ecd,edf->ecf", grouped, use_weight(params["wi_gate"]))
     up = _mm("ecd,edf->ecf", grouped, use_weight(params["wi_up"]))
     if mlp_kind == "geglu":
@@ -144,13 +198,18 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
     c = capacity(t, cfg)
     ctx = current_context()
     if ctx is not None:
+        mesh_kinds_unsupported(cfg)
         x = replicated(x, ctx[1])
     xf = flatten(x, 0, 1)
 
     # the router at its use: E over the model axis where it divides, so the
     # model-axis devices share the routing product
     router = use_weight(params["router"], ("embed", "experts"))
-    probs, gate_vals, expert_idx = route(xf, router, k)  # (T, E), (T, k), (T, k)
+    if cfg.moe_router == "sigmoid":
+        probs, gate_vals, expert_idx, choice = route_sigmoid(xf, router, params["router_bias"], k,
+                                                             cfg.moe_routed_scale)
+    else:
+        probs, gate_vals, expert_idx = route(xf, router, k)  # (T, E), (T, k), (T, k)
     flat_e = gathered(expert_idx.reshape(t * k))  # every device's copy (module docstring)
 
     # load-balancing loss (Switch): E · Σ_e f_e · p_e, f_e counted by a
@@ -166,7 +225,10 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
         pos_in_e = positions(flat_e, e)
         keep = pos_in_e < c
         if _RECORD is not None:
-            _record(expert_idx, keep.reshape(t, k), probs, k)
+            if cfg.moe_router == "sigmoid":
+                _record(expert_idx, keep.reshape(t, k), choice, k, log=False)
+            else:
+                _record(expert_idx, keep.reshape(t, k), probs, k)
 
         # dispatch into (E·C, D). A kept assignment owns its slot alone; a
         # dropped one adds a zero row to slot 0. So each buffer row receives
@@ -186,7 +248,11 @@ def moe_apply(params: dict, x: torch.Tensor,  # repro_torch: hot
     with trace.span("moe/combine"):
         weight = (gate_vals.reshape(t * k, 1) * keep[:, None]).to(h.dtype)
         y = (h.reshape(e * c, d)[slot] * weight).reshape(t, k, d).sum(1)
-    return y.reshape(b, s, d), aux
+    y = y.reshape(b, s, d)
+    if cfg.moe_shared_d_ff:
+        with trace.span("moe/shared"):
+            y = y + mlp_apply(params["shared"], x, cfg.mlp_kind)
+    return y, aux
 
 
 def _on_mesh(params: dict, x: DTensor, probs: DTensor, gate_vals: DTensor, expert_idx: DTensor,

@@ -48,7 +48,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from ..configs.base import ModelConfig
 from ..sharding.act import replicated
 from ..sharding.rules import axes, placements
-from .moe import experts, positions, route
+from .moe import experts, mesh_kinds_unsupported, positions, route
 
 _F32 = torch.float32
 
@@ -123,6 +123,7 @@ def moe_apply_shard_map(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y (B, S, D) a DTensor placed as the block's tokens, aux a
     replicated f32 scalar DTensor)."""
+    mesh_kinds_unsupported(cfg)
     e, k = cfg.n_experts, cfg.top_k
     sizes = axes(mesh).shape
     model_n = sizes["model"]

@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port tests (``tests/test_torch_*.py``):
 design populations built by the JAX package, their translation into the
 port, and the column-by-column comparison of simulator outputs."""
+import dataclasses
 import random
 
 import numpy as np
@@ -21,6 +22,17 @@ CHECK_KEYS = (
 )
 INT_DTYPES = {"bneck_code": np.int32, "n_phases": np.int32, "top_bneck_pe": np.int32,
               "top_bneck_mem": np.int32, "all_done": np.bool_}
+
+
+def assert_same_config(port, ref) -> None:
+    """The port's ``ModelConfig`` holds every field of the reference's,
+    value for value, and each field of the port's own (``ssm_groups``,
+    ``moe_router``, ...) at its default, which is the reference's
+    behaviour."""
+    theirs, mine = dataclasses.asdict(ref), dataclasses.asdict(port)
+    assert {k: mine[k] for k in theirs} == theirs
+    own = [f for f in dataclasses.fields(port) if f.name not in theirs]
+    assert own and {f.name: mine[f.name] for f in own} == {f.name: f.default for f in own}
 
 
 def chain_designs(g, n_noc: int, count: int, seed: int = 0):

@@ -244,3 +244,74 @@ def test_generate_on_card_goes_through_kernels(cuda):
     _, plain = generate(model, cfg, {"tokens": toks}, 1, flags=RunFlags())
     _, through = generate(model, cfg, {"tokens": toks}, 1, flags=kernel)
     torch.testing.assert_close(through, plain, atol=5e-2, rtol=2e-2)
+
+
+def grouped_inputs(b, s, h, p, g, n, dtype, device, seed=0):
+    """x, dt, a, B, C as a grouped Mamba-2 prefill passes them: x (B, S, H, P)
+    and B, C (B, S, G, N) views of one (B, S, H*P + 2GN) projection."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xbc = torch.randn(b, s, h * p + 2 * g * n, generator=gen, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device=device))
+    a = -torch.exp(torch.randn(h, generator=gen, device=device))
+    bm = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    return xbc[..., :h * p].view(b, s, h, p), dt, a, bm, cm
+
+
+GROUP_CASES = [  # (B, S, H, P, G, N, chunk, dtype): Nemotron-H's layout, then both routes smaller
+    (1, 2048, 64, 64, 8, 128, 128, torch.bfloat16),
+    (2, 512, 8, 64, 2, 128, 64, torch.bfloat16),
+    (2, 256, 8, 32, 4, 16, 32, torch.float32),
+    (1, 256, 4, 64, 2, 128, 128, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_grouped_kernel_matches_plain_version(cuda, case):
+    """B and C in G groups, head h reading group h // (H / G): one launch a
+    call, on the route ``kernel.route`` names, within the reference's bars
+    of the plain grouped version."""
+    from repro_torch.kernels.ssd import kernel as K
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_reference
+
+    b, s, h, p, g, n, q, dtype = case
+    x, dt, a, bm, cm = grouped_inputs(b, s, h, p, g, n, dtype, cuda, seed=s + g)
+    want_route = K.route(dtype, dtype, q, p, n)
+    before = dict(K.launches_by_route)
+    y, h_final = ssd(x, dt, a, bm, cm, chunk=q)
+    torch.cuda.synchronize()
+    assert {r: K.launches_by_route[r] - before[r] for r in K.ROUTES} == {r: int(r == want_route) for r in K.ROUTES}
+    y_ref, h_ref = ssd_reference(x, dt, a, bm, cm, chunk=q)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=Y_TOL[dtype], rtol=Y_TOL[dtype])
+    torch.testing.assert_close(h_final, h_ref, atol=H_TOL, rtol=H_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_group_is_the_shared_layout_bitwise(cuda, dtype):
+    """B and C of shape (B, S, 1, N) give the bits of the (B, S, N) call, and
+    G groups that all hold the same B and C give the one-group result."""
+    from repro_torch.kernels.ssd.ops import ssd
+
+    x, dt, a, bm, cm = model_inputs(2, 512, 8, 64, 128, dtype, cuda, seed=5)
+    y1, h1 = ssd(x, dt, a, bm, cm, chunk=64)
+    y2, h2 = ssd(x, dt, a, bm.unsqueeze(2), cm.unsqueeze(2), chunk=64)
+    y4, h4 = ssd(x, dt, a, bm[:, :, None].expand(-1, -1, 4, -1).contiguous(),
+                 cm[:, :, None].expand(-1, -1, 4, -1).contiguous(), chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.equal(y1, y4) and torch.equal(h1, h4)
+
+
+@pytest.mark.gpu
+def test_grouped_kernel_matches_recurrence(cuda):
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_naive
+
+    x, dt, a, bm, cm = grouped_inputs(1, 256, 8, 64, 4, 128, torch.bfloat16, cuda, seed=11)
+    y, h_final = ssd(x, dt, a, bm, cm, chunk=128)
+    y_ref, h_ref = ssd_naive(x, dt, a, bm, cm)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(h_final, h_ref, atol=H_TOL, rtol=H_TOL)

@@ -1,6 +1,6 @@
 """The port's architecture configs are the reference's: every registered
-config and every reduced config, field by field, and the derived
-properties the model code reads."""
+config and every reduced config, field by field (the port's own fields at
+their defaults), and the derived properties the model code reads."""
 import dataclasses
 
 import pytest
@@ -9,6 +9,7 @@ pytest.importorskip("torch")
 
 from repro.configs import registry as R  # noqa: E402
 from repro_torch.configs import registry as P  # noqa: E402
+from _torch_helpers import assert_same_config  # noqa: E402
 
 
 def test_same_architectures():
@@ -21,7 +22,7 @@ def test_same_architectures():
 def test_config_fields_and_derived(name, reduced):
     get = (lambda m: m.reduced_config(name)) if reduced else (lambda m: m.get_config(name))
     ref, port = get(R), get(P)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert_same_config(port, ref)  # the port's own fields at their defaults
     assert (port.cycle_len, port.n_cycles, port.ssm_d_inner, port.ssm_n_heads) == (
         ref.cycle_len, ref.n_cycles, ref.ssm_d_inner, ref.ssm_n_heads)
     assert [port.mlp_kind_at(i) for i in range(port.cycle_len)] == [

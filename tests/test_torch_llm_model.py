@@ -41,6 +41,7 @@ from repro_torch.configs.registry import reduced_config  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models.moe import record_routing  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
+from _torch_helpers import assert_same_config  # noqa: E402
 
 DENSE = ["qwen3-1.7b", "gemma-7b", "starcoder2-7b", "mistral-large-123b", "qwen2-vl-2b",
          "musicgen-large"]
@@ -58,7 +59,7 @@ def reference_params(name, seed=0, dtype=jnp.float32, **overrides):
     ref_cfg = ref_reduced(name)
     ref_cfg = dataclasses.replace(ref_cfg, n_layers=2 * ref_cfg.cycle_len, **overrides)
     cfg = dataclasses.replace(reduced_config(name), n_layers=ref_cfg.n_layers, **overrides)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert_same_config(cfg, ref_cfg)
     tree = RM.init_params(ref_cfg, jax.random.PRNGKey(seed), dtype=dtype)
     return cfg, ref_cfg, tree, params_from_reference(jax.tree.map(np.asarray, tree), device="cpu")
 

@@ -39,6 +39,7 @@ from repro_torch.kernels.moe_positions import moe_positions  # noqa: E402
 from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import moe as PMoE  # noqa: E402
 from repro_torch.models.convert import _tensor, params_from_reference  # noqa: E402
+from _torch_helpers import assert_same_config  # noqa: E402
 from test_torch_llm_model import (  # noqa: E402
     MOE,
     batches,
@@ -58,7 +59,7 @@ DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bflo
 def configs(name, **overrides):
     ref_cfg = dataclasses.replace(ref_reduced(name), **overrides)
     cfg = dataclasses.replace(reduced_config(name), **overrides)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert_same_config(cfg, ref_cfg)
     return cfg, ref_cfg
 
 

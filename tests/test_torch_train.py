@@ -50,6 +50,7 @@ from repro_torch.models.convert import params_from_reference, train_state_from_r
 from repro_torch.optim import adamw as PA  # noqa: E402
 from repro_torch.optim import compress as PC  # noqa: E402
 from repro_torch.train import step as PS  # noqa: E402
+from _torch_helpers import assert_same_config  # noqa: E402
 
 GRAD_TOL = 1e-5
 LOSS_RTOL, LR_ATOL, PARAM_LRS = 2e-2, 1e-7, 2.5
@@ -61,7 +62,7 @@ S, BATCH = 32, 4
 def configs(name="qwen3-1.7b"):
     ref_cfg = dataclasses.replace(ref_reduced(name), n_layers=2)
     cfg = dataclasses.replace(reduced_config(name), n_layers=2)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert_same_config(cfg, ref_cfg)
     return cfg, ref_cfg
 
 

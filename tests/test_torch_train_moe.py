@@ -80,6 +80,7 @@ from repro_torch.models.convert import _tensor, params_from_reference, train_sta
 from repro_torch.optim import adamw as PA  # noqa: E402
 from repro_torch.train import step as PS  # noqa: E402
 from test_torch_llm_model import MOE, reference_route, same_routing  # noqa: E402
+from _torch_helpers import assert_same_config  # noqa: E402
 
 GRAD_TOL, AUX_TOL, A_LOG_TOL = 1e-5, 1e-6, 2e-4
 LOSS_RTOL, LR_ATOL, PARAM_LRS = 2e-2, 1e-7, 2.5
@@ -144,7 +145,7 @@ def configs(name, **overrides):
     ref_cfg = ref_reduced(name)
     ref_cfg = dataclasses.replace(ref_cfg, n_layers=ref_cfg.cycle_len, **overrides)
     cfg = dataclasses.replace(reduced_config(name), n_layers=ref_cfg.n_layers, **overrides)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    assert_same_config(cfg, ref_cfg)
     return cfg, ref_cfg
 
 
